@@ -1,0 +1,179 @@
+"""Command-line interface of the PyTorch/CUDA port: ``genotype`` for
+Illumina alignments (BAM/SAM/CRAM) and ``viewmodel``.
+
+The flag surface is the reference's (advntr_tpu/cli.py:23-116) plus an
+explicit ``--device``; flags whose paths are not ported yet exit with an
+error that names their ROADMAP.md item.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import logging
+import os
+import sys
+
+from advntr_tpu.config import Config
+from advntr_tpu_torch import __version__
+from advntr_tpu_torch.device import DEVICES, resolve_device
+
+DEFAULT_ILLUMINA_DB = "vntr_data/hg19_selected_VNTRs_Illumina.db"
+
+# flag -> why it cannot run yet
+NOT_PORTED = {
+    "pacbio": "-p/--pacbio (long reads) is ROADMAP.md item A9",
+    "frameshift": "-fs/--frameshift is ROADMAP.md item A10",
+    "update": "-u/--update (model re-estimation) is ROADMAP.md item A10",
+    "em": "--em (Baum-Welch update) is ROADMAP.md item A10",
+}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        prog="advntr-tpu-torch",
+        description="adVNTR-TPU %s on PyTorch + CUDA: genotyping tool for "
+                    "VNTRs" % __version__)
+    sub = parser.add_subparsers(title="Commands", dest="command")
+
+    g = sub.add_parser("genotype", help="find RU counts of VNTRs")
+    io = g.add_argument_group("Input/output options")
+    io.add_argument("-a", "--alignment_file", type=str, metavar="<file>",
+                    help="alignment file in SAM/BAM/CRAM format")
+    io.add_argument("-r", "--reference_filename", type=str, metavar="<file>",
+                    help="FASTA-formatted reference file for CRAM files")
+    io.add_argument("-p", "--pacbio", action="store_true",
+                    help="input contains PacBio reads (not ported yet)")
+    io.add_argument("--accuracy_filter", action="store_true",
+                    help="genotype only from confidently spanning reads")
+    io.add_argument("-n", "--nanopore", action="store_true",
+                    help="input contains Nanopore MinION reads")
+    io.add_argument("-o", "--outfile", metavar="<file>", default=None,
+                    help="file to write results (default: stdout)")
+    io.add_argument("-of", "--outfmt", metavar="<format>", default="text",
+                    choices=["text", "bed", "vcf"])
+    io.add_argument("--disable_logging", action="store_true", default=False)
+
+    alg = g.add_argument_group("Algorithm options")
+    alg.add_argument("-fs", "--frameshift", action="store_true",
+                     help="search for frameshifts (not ported yet)")
+    alg.add_argument("-e", "--expansion", action="store_true",
+                     help="determine long expansion from PCR-free data")
+    alg.add_argument("-c", "--coverage", type=float, metavar="<float>",
+                     help="average sequencing coverage in PCR-free sequencing")
+    alg.add_argument("--haploid", action="store_true", default=False)
+
+    other = g.add_argument_group("Other options")
+    other.add_argument("--device", choices=DEVICES, default="cuda",
+                       help="where the kernels run: cuda (default; fails "
+                            "without a GPU) or cpu (their plain PyTorch "
+                            "twins)")
+    other.add_argument("--working_directory", type=str, metavar="<path>",
+                       default=None)
+    other.add_argument("-m", "--models", type=str, metavar="<file>",
+                       default=None)
+    other.add_argument("-t", "--threads", type=int, metavar="<int>", default=1)
+    other.add_argument("-u", "--update", action="store_true", default=False,
+                       help="model update (not ported yet)")
+    other.add_argument("--em", action="store_true", default=False,
+                       help="Baum-Welch model update (not ported yet)")
+    other.add_argument("-vid", "--vntr_id", type=str, metavar="<text>",
+                       default=None, help="comma-separated list of VNTR IDs")
+
+    v = sub.add_parser("viewmodel", help="view existing models in database")
+    v.add_argument("-g", "--gene", type=str, default="")
+    v.add_argument("-p", "--pattern", type=str, default=None)
+    v.add_argument("-m", "--models", type=str, default=None)
+    return parser
+
+
+def _err(msg: str):
+    sys.exit("\nERROR: %s" % msg)
+
+
+def genotype(args) -> None:
+    from advntr_tpu.models.db import load_unique_vntrs_data
+    from advntr_tpu_torch.engine.analyzer import GenomeAnalyzer
+
+    for flag, why in NOT_PORTED.items():
+        if getattr(args, flag):
+            _err("not available in advntr_tpu_torch yet: " + why)
+    if args.alignment_file is None:
+        _err("No input specified. Please specify an alignment file "
+             "(Illumina reads need BAM/SAM/CRAM)")
+    input_file = args.alignment_file
+    if not input_file.endswith(("bam", "sam", "cram")):
+        _err("The input file format is not supported for Illumina. "
+             "Please use BAM/SAM files.")
+    if args.expansion and args.coverage is None:
+        _err("Please specify the average coverage to identify the expansion")
+    device = resolve_device(args.device)
+    config = Config().with_platform(False, args.nanopore)
+    if args.threads and args.threads > 0:
+        config = dataclasses.replace(config, io_threads=args.threads)
+    average_coverage = args.coverage if args.expansion else None
+    working_dir = (args.working_directory + "/" if args.working_directory
+                   else os.path.dirname(input_file) + "/")
+    if not args.disable_logging:
+        log_file = working_dir + "log_%s.log" % os.path.basename(input_file)
+        logging.basicConfig(
+            format="%(asctime)s %(levelname)s:%(message)s",
+            filename=log_file, level=logging.DEBUG, filemode="w")
+    else:
+        logging.disable(level=logging.CRITICAL)
+
+    reference_vntrs = load_unique_vntrs_data(args.models or
+                                             DEFAULT_ILLUMINA_DB)
+    target_vntrs = [r.id for r in reference_vntrs]
+    if args.vntr_id is not None:
+        target_vntrs = [int(vid) for vid in args.vntr_id.split(",")]
+    logging.info("adVNTR-TPU (torch) %s on %s", __version__, device)
+    logging.info("Running for %s VNTRs", len(target_vntrs))
+
+    out = open(args.outfile, "w") if args.outfile else sys.stdout
+    analyzer = GenomeAnalyzer(reference_vntrs, target_vntrs, working_dir,
+                              args.outfmt, args.haploid,
+                              args.reference_filename, input_file,
+                              config=config, out=out, device=device)
+    try:
+        analyzer.find_repeat_counts_from_alignment_file(
+            input_file, accuracy_filter=args.accuracy_filter,
+            average_coverage=average_coverage)
+    finally:
+        analyzer.model_cache.close()
+        if args.outfile:
+            out.close()
+
+
+def view_model(args) -> None:
+    from advntr_tpu.models.db import load_unique_vntrs_data
+    if args.pattern and set(args.pattern.upper()) - set("ACGT"):
+        _err("Pattern should only contain A, C, G, T")
+    genes = [g.upper() for g in args.gene.split(",") if g]
+    print("VNTR ID\t| Chr\t| Gene\t| Start Position | Pattern")
+    print("--------------------------------------------------")
+    for ref in load_unique_vntrs_data(args.models or DEFAULT_ILLUMINA_DB):
+        if genes and (ref.gene_name or "").upper() not in genes:
+            continue
+        if args.pattern and ref.pattern != args.pattern.upper():
+            continue
+        gene_name = str(ref.gene_name)
+        if len(gene_name) < 7:
+            gene_name += "\t"
+        print("%s\t| %s\t|%s| %s\t | %s" % (ref.id, ref.chromosome, gene_name,
+                                            ref.start_point, ref.pattern))
+
+
+def main(argv=None) -> None:
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if args.command == "genotype":
+        genotype(args)
+    elif args.command == "viewmodel":
+        view_model(args)
+    else:
+        parser.error("Please specify a valid command")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,20 @@
+"""Explicit device selection: nothing in the package moves to the CPU on
+its own.  ``cuda`` (the default) raises when no GPU is visible; the CPU
+path runs the kernels' plain PyTorch twins and only when asked for."""
+
+from __future__ import annotations
+
+import torch
+
+DEVICES = ("cuda", "cpu")
+
+
+def resolve_device(name: str | torch.device = "cuda") -> torch.device:
+    dev = torch.device(name)
+    if dev.type not in DEVICES:
+        raise ValueError(f"unsupported device {name!r}; use one of {DEVICES}")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda requested but torch sees no CUDA "
+                           "device; pass --device cpu to run the plain "
+                           "PyTorch path")
+    return dev

@@ -1,0 +1,130 @@
+"""Per-read genotyping analytics on the device.
+
+Counterpart of advntr_tpu/engine/device_analytics.py.  ``read_stats``
+runs the fused kernel pair (ops/viterbi_fused.py) for one locus and
+returns only O(B) scalars; ``read_stats_grouped`` scores G same-shape
+loci, one launch pair each.  ``analytics_from_path`` is the plain
+path-walking oracle that the backward walk's in-kernel statistics are
+held against.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from advntr_tpu.models.graph import K_MATCH, R_PREFIX, R_REPEAT, R_SUFFIX
+from advntr_tpu_torch.ops import viterbi_fused as vf
+from advntr_tpu_torch.ops.viterbi_fused import MIN_BP_IN_REPEAT
+
+
+def read_stats(model, seqs, lengths, return_path: bool = False,
+               origin32: bool = False) -> dict:
+    """Viterbi + traceback + analytics for one locus: a dict of (B,)
+    tensors (counterpart of read_stats_pallas, device_analytics.py:222)."""
+    return vf.viterbi_stats(model, seqs, lengths, return_path=return_path,
+                            origin32=origin32)
+
+
+def read_stats_grouped(models, seqs, lengths,
+                       return_path: bool = False) -> dict:
+    """G same-shape loci: models[g] scores seqs[g] (B, L) with lengths[g];
+    a dict of (G, B) tensors (counterpart of read_stats_pallas_grouped,
+    device_analytics.py:276)."""
+    outs = [vf.viterbi_stats(m, seqs[g], lengths[g], return_path=return_path)
+            for g, m in enumerate(models)]
+    return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
+
+def flank_rates(stats: dict, accuracy_filter: bool = False) -> np.ndarray:
+    """min(left, right) flank matching rate per read, on the host
+    (reference semantics hmm_utils.py:257-268): an absent flank counts as
+    1.0, or as epsilon under the accuracy filter."""
+    lb = np.asarray(stats["left_flank_bp"], dtype=np.float64)
+    rb = np.asarray(stats["right_flank_bp"], dtype=np.float64)
+    lm = np.asarray(stats["left_flank_matches"], dtype=np.float64)
+    rm = np.asarray(stats["right_flank_matches"], dtype=np.float64)
+    default = 0.00001 if accuracy_filter else 1.0
+    with np.errstate(invalid="ignore", divide="ignore"):
+        lr = np.where(lb > 0, lm / np.maximum(lb, 1), default)
+        rr = np.where(rb > 0, rm / np.maximum(rb, 1), default)
+    return np.minimum(lr, rr)
+
+
+def analytics_from_path(meta, logp, path, seqs, lengths,
+                        return_path: bool = False) -> dict:
+    """Per-read statistics from a decoded artifact-space path (B, L) and
+    the artifact's (kind, region, exp_base, unit) vectors: the plain walk
+    of device_analytics.py:77-194."""
+    kind, region, exp_base, unit = (x.long() for x in meta)
+    path = path.long()
+    seqs = seqs.long()
+    lengths = lengths.long()
+    B, L = seqs.shape
+    tpos = torch.arange(L, device=seqs.device)[None, :]
+    valid = tpos < lengths[:, None]
+    p_kind, p_region, p_exp, p_unit = (kind[path], region[path],
+                                       exp_base[path], unit[path])
+    is_m = (p_kind == K_MATCH) & valid
+    base_match = (p_exp == seqs) & is_m
+    cnt = lambda mask: mask.sum(dim=1).to(torch.int32)
+
+    r_i, r_j = p_region[:, :-1], p_region[:, 1:]
+    u_i, u_j = p_unit[:, :-1], p_unit[:, 1:]
+    base = torch.where(r_i == R_REPEAT, u_i, -1)
+    starts_rep = u_j - base
+    ends_rep = starts_rep - (r_i == R_SUFFIX).long()
+    pre_from_suf = ((r_j == R_PREFIX) & (r_i == R_SUFFIX)).long()
+    hop_us_t = torch.where(r_j == R_REPEAT, starts_rep, pre_from_suf)
+    hop_ue_t = torch.where(
+        r_j == R_REPEAT, ends_rep,
+        ((r_j == R_PREFIX) & ((r_i == R_REPEAT) | (r_i == R_SUFFIX))).long())
+    # start hop: direct entry to a unit-0 match is crossing-free
+    j0_rep = p_region[:, 0] == R_REPEAT
+    j0_u0m = j0_rep & (p_unit[:, 0] == 0) & (p_kind[:, 0] == K_MATCH)
+    j0_pre = (p_region[:, 0] == R_PREFIX).long()
+    s_us = torch.where(j0_rep & ~j0_u0m, p_unit[:, 0] + 1, j0_pre)
+    s_ue = torch.where(j0_rep & ~j0_u0m, p_unit[:, 0], j0_pre)
+    hop_us = torch.cat([s_us[:, None], hop_us_t.clamp(min=0)], dim=1)
+    hop_ue = torch.cat([s_ue[:, None], hop_ue_t.clamp(min=0)], dim=1)
+    hop_us = torch.where(valid, hop_us, 0)
+    hop_ue = torch.where(valid, hop_ue, 0)
+    # end hop at bp = length
+    last = (lengths - 1)[:, None]
+    li_region = torch.gather(p_region, 1, last)[:, 0]
+    li_kind = torch.gather(p_kind, 1, last)[:, 0]
+    end_ue = ((li_region == R_SUFFIX) |
+              ((li_region == R_REPEAT) & (li_kind != K_MATCH))).long()
+
+    cs = torch.where(lengths[:, None] - tpos >= MIN_BP_IN_REPEAT, hop_us, 0)
+    ce = torch.where(tpos >= MIN_BP_IN_REPEAT, hop_ue, 0)
+    end_guard_end = torch.where(lengths >= MIN_BP_IN_REPEAT, end_ue, 0)
+    starts = cs.sum(dim=1)
+    ends = ce.sum(dim=1) + end_guard_end
+
+    BIG = vf.BIG
+    hp = tpos.expand_as(cs)
+    first_start = torch.where(cs > 0, hp, BIG).min(dim=1).values
+    last_start = torch.where(cs > 0, hp, -BIG).max(dim=1).values
+    first_end = torch.where(ce > 0, hp, BIG).min(dim=1).values
+    last_end = torch.where(ce > 0, hp, -BIG).max(dim=1).values
+    first_end = torch.where((end_guard_end > 0) & (first_end == BIG),
+                            lengths, first_end)
+    last_end = torch.where(end_guard_end > 0, lengths, last_end)
+    have_all = ((first_start != BIG) & (last_start != -BIG) &
+                (first_end != BIG) & (last_end != -BIG))
+    delta = (have_all & (first_end < first_start) &
+             (last_start > last_end)).long()
+    out = {
+        "logp": logp,
+        "repeats": (torch.maximum(starts, ends) + delta).to(torch.int32),
+        "n_matches": cnt(is_m),
+        "repeat_bp": cnt((p_region == R_REPEAT) & valid),
+        "left_flank_bp": cnt((p_region == R_SUFFIX) & valid),
+        "right_flank_bp": cnt((p_region == R_PREFIX) & valid),
+        "left_flank_matches": cnt(base_match & (p_region == R_SUFFIX)),
+        "right_flank_matches": cnt(base_match & (p_region == R_PREFIX)),
+    }
+    if return_path:
+        out["path"] = path
+    return out

@@ -1,0 +1,567 @@
+"""Per-locus VNTR genotyping engine, Illumina reads.
+
+Counterpart of the Illumina part of advntr_tpu/engine/finder.py: all
+candidate reads of a locus (mapped, plus both orientations of unmapped)
+are encoded, padded and scored in one fused Viterbi + analytics call on
+the device; the host applies the scalar gates and the genotype model
+(advntr_tpu.engine.genotype, shared).
+
+Model "weights" are the numpy ``(art, sm)`` payload that
+``build_locus_payload`` writes: the same ``model_bank/*.pkl.gz`` files the
+reference writes and reads.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import gzip
+import logging
+import os
+import pickle
+
+import numpy as np
+import torch
+
+from advntr_tpu import dna
+from advntr_tpu.config import Config, DEFAULT_CONFIG
+from advntr_tpu.engine.genotype import find_genotype
+from advntr_tpu.models.compiler import compile_graph
+from advntr_tpu.models.graph import build_read_matcher
+from advntr_tpu.models.profile import profile_for_repeats
+from advntr_tpu.utils.profiler import time_usage
+from advntr_tpu_torch.engine import device_analytics as da
+from advntr_tpu_torch.ops.struct_model import TorchStructModel
+
+# Slim bank payloads drop the O(n^2) artifact tables; the port needs only
+# the O(n) fields, so it reads slim and full banks alike (finder.py:115-125)
+SLIM_BANK = os.environ.get("ADVNTR_TPU_SLIM_BANK", "0") == "1"
+_SLIM_FIELDS = ("log_T", "t_unit_starts", "t_unit_ends", "hop_choice",
+                "closure_parent")
+
+
+@dataclasses.dataclass
+class GenotypeResult:
+    copy_numbers: tuple | None
+    recruited_reads_count: int
+    spanning_reads_count: int
+    flanking_reads_count: int
+    maximum_likelihood: float
+
+
+@dataclasses.dataclass
+class ScoredRead:
+    sequence: str
+    logp: float
+    repeats: int
+    repeat_bp: int
+    left_flank_bp: int
+    right_flank_bp: int
+    flank_rate: float
+    n_matches: int
+    is_mapped: bool
+    query_name: str | None = None
+    row: int = -1  # batch row of the winning orientation
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+@dataclasses.dataclass
+class LocusModel:
+    """Everything score_reads needs for one compiled locus model."""
+    model: TorchStructModel        # padded device tables
+    n_pad: int                     # state count padded to the bucket
+
+    def shape_key(self) -> tuple:
+        """Same-key loci share kernel shapes and score as one group (the
+        key of analyzer.py:496-501)."""
+        return self.model.shape_key() + (self.n_pad,)
+
+
+def build_locus_payload(ref_vntr, copies: int, flank_size: int,
+                        error_rate: float, slim: bool | None = None):
+    """Host-side model construction for one locus (finder.py:128-143):
+    profile estimation, graph build, silent-state elimination, structured
+    extraction.  Pure numpy output, so it can run in worker processes."""
+    from advntr_tpu.models.struct_compiler import build_structured
+    left = ref_vntr.left_flanking_region[-flank_size:]
+    right = ref_vntr.right_flanking_region[:flank_size]
+    trans, emis = profile_for_repeats(
+        list(ref_vntr.get_repeat_segments()), error_rate)
+    g = build_read_matcher(left, right, trans, emis, copies, error_rate)
+    art = compile_graph(g)
+    sm = build_structured(g, art)
+    if slim if slim is not None else SLIM_BANK:
+        art = dataclasses.replace(art, **{f: None for f in _SLIM_FIELDS})
+    return art, sm
+
+
+def bank_payload_path(bank_dir: str, vid, copies: int, flank_size: int,
+                      error_rate: float) -> str:
+    """The reference's per-locus bank file name (finder.py:146-155), so
+    banks are shared between the two packages."""
+    suffix = ".slim" if SLIM_BANK else ""
+    return os.path.join(bank_dir, "model_%s_%s_%s_%s%s.pkl.gz"
+                        % (vid, copies, flank_size, error_rate, suffix))
+
+
+class LocusModelCache:
+    """Per-(locus, read length) compiled model cache (finder.py:175-348).
+
+    Pads the structured position/unit axes to buckets, so that same-bucket
+    loci share kernel shapes and score as one group.  ``workers`` builds
+    scheduled loci in a spawn process pool while earlier loci score;
+    ``bank_dir`` persists and reuses the built payloads."""
+
+    def __init__(self, device="cuda", state_bucket: int = 128,
+                 pos_bucket: int = 128, unit_bucket: int = 8,
+                 workers: int = 0, bank_dir: str | None = None):
+        self.device = torch.device(device)
+        self.state_bucket = state_bucket
+        self.pos_bucket = pos_bucket
+        self.unit_bucket = unit_bucket
+        self.bank_dir = bank_dir
+        self._cache: dict = {}
+        self._futures: dict = {}
+        self._pool = None
+        if workers:
+            import concurrent.futures
+            import multiprocessing
+            # spawn: the workers are host-only builders and must not
+            # inherit the parent's CUDA context
+            self._pool = concurrent.futures.ProcessPoolExecutor(
+                workers, mp_context=multiprocessing.get_context("spawn"))
+
+    def close(self) -> None:
+        """Stop the worker pool, if any."""
+        if self._pool is not None:
+            self._pool.shutdown(cancel_futures=True)
+            self._pool = None
+
+    @staticmethod
+    def _key(ref_vntr, copies, flank_size, error_rate):
+        return (ref_vntr.id, copies, flank_size, error_rate)
+
+    def _bank_path(self, key):
+        if not self.bank_dir:
+            return None
+        return bank_payload_path(self.bank_dir, *key)
+
+    def schedule(self, ref_vntr, copies: int, flank_size: int,
+                 error_rate: float) -> None:
+        """Queue background compilation of a locus model."""
+        key = self._key(ref_vntr, copies, flank_size, error_rate)
+        if key in self._cache or key in self._futures or self._pool is None:
+            return
+        path = self._bank_path(key)
+        if path is not None and os.path.exists(path):
+            return  # bank hit; loaded lazily in get()
+        self._futures[key] = self._pool.submit(
+            build_locus_payload, ref_vntr, copies, flank_size, error_rate)
+
+    def get(self, ref_vntr, copies: int, flank_size: int,
+            error_rate: float) -> LocusModel:
+        key = self._key(ref_vntr, copies, flank_size, error_rate)
+        if key in self._cache:
+            return self._cache[key]
+        path = self._bank_path(key)
+        payload = None
+        built = False
+        fut = self._futures.pop(key, None)
+        if fut is not None:
+            payload, built = fut.result(), True
+        if payload is None and path is not None and os.path.exists(path):
+            with gzip.open(path, "rb") as fh:
+                payload = pickle.load(fh)
+        if payload is None:
+            payload = build_locus_payload(ref_vntr, copies, flank_size,
+                                          error_rate)
+            built = True
+        if built and path is not None and not os.path.exists(path):
+            os.makedirs(self.bank_dir, exist_ok=True)
+            tmp = "%s.tmp.%d" % (path, os.getpid())
+            with gzip.open(tmp, "wb", compresslevel=1) as fh:
+                pickle.dump(payload, fh)
+            os.replace(tmp, path)
+        self._cache[key] = self._build_from_payload(*payload)
+        return self._cache[key]
+
+    def evict(self, ref_vntr, copies: int, flank_size: int,
+              error_rate: float) -> None:
+        """Drop a locus's model from the in-RAM cache (the bank copy on
+        disk stays); panel runs evict each finished wave."""
+        self._cache.pop(self._key(ref_vntr, copies, flank_size, error_rate),
+                        None)
+
+    @staticmethod
+    def _coarse_bucket(size: int, bucket: int) -> int:
+        """Axes past 1024 pad to 512-multiples (finder.py:297-304)."""
+        return max(bucket, 512) if size > 1024 else bucket
+
+    def _build_from_payload(self, art, sm) -> LocusModel:
+        from advntr_tpu.models.struct_compiler import pad_structured
+        n_pad = _round_up(art.n_states,
+                          self._coarse_bucket(art.n_states,
+                                              self.state_bucket))
+        P_pad = _round_up(sm.P + 1,
+                          self._coarse_bucket(sm.P + 1, self.pos_bucket))
+        C_pad = _round_up(sm.C, self.unit_bucket if sm.C <= 24
+                          else max(self.unit_bucket, 32))
+        sm = pad_structured(sm, art, P_pad, C_pad)
+        return LocusModel(
+            model=TorchStructModel.from_payload(art, sm, self.device),
+            n_pad=n_pad)
+
+
+def flank_pattern_homology(pattern: str, left_flank: str,
+                           right_flank: str) -> tuple[int, int]:
+    """(left, right) homology runs between the flanks and the repeat
+    (finder.py:399-426): the longest flank run that continues some
+    rotation of the pattern, on each side."""
+    if not pattern:
+        return 0, 0
+    p = len(pattern)
+    best_r = 0
+    for r in range(p):
+        tiled = (pattern[r:] + pattern * (len(right_flank) // p + 1))
+        k = 0
+        while k < len(right_flank) and right_flank[k] == tiled[k]:
+            k += 1
+        best_r = max(best_r, k)
+    best_l = 0
+    rev_f = left_flank[::-1]
+    rev_p = pattern[::-1]
+    for r in range(p):
+        tiled = (rev_p[r:] + rev_p * (len(left_flank) // p + 1))
+        k = 0
+        while k < len(rev_f) and rev_f[k] == tiled[k]:
+            k += 1
+        best_l = max(best_l, k)
+    return best_l, best_r
+
+
+class VNTRFinder:
+    """Find the VNTR genotype of one locus in a pool of candidate reads."""
+
+    def __init__(self, reference_vntr, config: Config = DEFAULT_CONFIG,
+                 is_haploid: bool = False,
+                 model_cache: LocusModelCache | None = None,
+                 device="cuda"):
+        self.reference_vntr = reference_vntr
+        self.config = config
+        self.is_haploid = is_haploid
+        self.cache = model_cache or LocusModelCache(device=device)
+        self.device = self.cache.device
+        self.coverage_corrector = None
+        # reference: vntr_finder.py:66-73
+        self.min_repeat_bp_to_add_read = 2
+        self.min_repeat_bp_to_count_repeats = 2
+        self.minimum_flanking_size = 5
+        self.minimum_left_flanking_size = 5
+        self.minimum_right_flanking_size = 5
+        if config.spanning_homology_guard:
+            lh, rh = flank_pattern_homology(
+                reference_vntr.pattern,
+                reference_vntr.left_flanking_region,
+                reference_vntr.right_flanking_region)
+            self.minimum_left_flanking_size = max(
+                self.minimum_left_flanking_size, lh)
+            self.minimum_right_flanking_size = max(
+                self.minimum_right_flanking_size, rh)
+        self.vntr_start = reference_vntr.start_point
+        self.vntr_end = self.vntr_start + reference_vntr.get_length()
+
+    # -- model construction --------------------------------------------------
+
+    def get_copies_for_hmm(self, read_length: int) -> int:
+        # reference: vntr_finder.py:98-99
+        return int(round(read_length / len(self.reference_vntr.pattern) + 0.5))
+
+    def get_model(self, read_length: int, copies: int | None = None,
+                  flank_size: int | None = None) -> LocusModel:
+        if self.config.trained_hmms_dir:
+            raise NotImplementedError(
+                "trained-HMM JSON models (trained_hmms_dir) are not ported "
+                "to advntr_tpu_torch yet; see ROADMAP.md A13")
+        copies = copies if copies is not None else \
+            self.get_copies_for_hmm(read_length)
+        flank_size = flank_size if flank_size is not None else read_length
+        return self.cache.get(self.reference_vntr, copies, flank_size,
+                              self.config.max_error_rate)
+
+    def _check_no_dnn_model(self) -> None:
+        """A per-locus DNN recruitment model (finder.py:514-524) would
+        pre-screen unmapped reads; that gate is not ported yet."""
+        path = os.path.join(self.config.dnn_models_dir,
+                            f"{self.reference_vntr.id}.npz")
+        if os.path.exists(path):
+            raise NotImplementedError(
+                f"DNN recruitment model {path} found; the DNN pre-gate is "
+                "not ported to advntr_tpu_torch yet (ROADMAP.md A11)")
+
+    def recruitment_score_threshold(self, read_length: int):
+        # reference: vntr_finder.py:174-177
+        score = self.reference_vntr.scaled_score
+        if score is None or score == 0:
+            return None
+        return score * read_length
+
+    # -- scoring -------------------------------------------------------------
+
+    def prepare_rows(self, mapped_reads, unmapped_reads):
+        """Host-side batch prep: N-filter, both orientations of unmapped
+        reads.  Returns (reads, rows, row_info)."""
+        self._check_no_dnn_model()
+        rows: list[np.ndarray] = []
+        row_info = []  # (read_index, orientation)
+        reads = []
+        for name, seq in mapped_reads:
+            seq = seq.upper()
+            if not dna.has_n(seq):
+                reads.append((name, seq, True))
+        for name, seq in unmapped_reads:
+            seq = seq.upper()
+            if not dna.has_n(seq):
+                reads.append((name, seq, False))
+        for ri, (name, seq, is_mapped) in enumerate(reads):
+            codes = dna.encode(seq)
+            rows.append(codes)
+            row_info.append((ri, 0))
+            if not is_mapped:
+                rows.append(dna.revcomp_codes(codes))
+                row_info.append((ri, 1))
+        return reads, rows, row_info
+
+    @staticmethod
+    def pad_rows(rows, length_bucket: int = 32, pad_to: int | None = None,
+                 b_pad: int | None = None):
+        """Pad rows into a (B, L) batch with bucketed dimensions
+        (finder.py:613-639): padded rows have length 1 and base 0."""
+        if pad_to is None and rows:
+            maxlen = max(len(r) for r in rows)
+            if maxlen > 1024:
+                length_bucket = max(length_bucket, 512)
+            elif maxlen > 256:
+                length_bucket = max(length_bucket, 128)
+        batch, lengths = dna.pad_batch(rows, pad_to=pad_to,
+                                       multiple=length_bucket)
+        if b_pad is None:
+            b_pad = 1 << (len(rows) - 1).bit_length()
+        if b_pad != len(rows):
+            batch = np.concatenate(
+                [batch, np.zeros((b_pad - len(rows), batch.shape[1]),
+                                 dtype=batch.dtype)])
+            lengths = np.concatenate(
+                [lengths, np.ones(b_pad - len(rows), dtype=lengths.dtype)])
+        return batch, lengths
+
+    def collect_scored(self, reads, row_info, stats) -> list[ScoredRead]:
+        """Orientation resolution + ScoredReads (finder.py:641-670)."""
+        rates = da.flank_rates(stats, accuracy_filter=False)
+        best_row: dict[int, int] = {}
+        for row, (ri, orient) in enumerate(row_info):
+            cur = best_row.get(ri)
+            if cur is None or stats["logp"][row] > stats["logp"][cur]:
+                best_row[ri] = row
+        scored = []
+        for ri, (name, seq, is_mapped) in enumerate(reads):
+            if ri not in best_row:
+                continue
+            row = best_row[ri]
+            orient = row_info[row][1]
+            scored.append(ScoredRead(
+                sequence=seq if orient == 0 else dna.revcomp(seq),
+                logp=float(stats["logp"][row]),
+                repeats=int(stats["repeats"][row]),
+                repeat_bp=int(stats["repeat_bp"][row]),
+                left_flank_bp=int(stats["left_flank_bp"][row]),
+                right_flank_bp=int(stats["right_flank_bp"][row]),
+                flank_rate=float(rates[row]),
+                n_matches=int(stats["n_matches"][row]),
+                is_mapped=is_mapped, query_name=name, row=row))
+        return scored
+
+    def counts_from_stats(self, reads, row_info, stats,
+                          read_length: int, accuracy_filter: bool = False):
+        """Vectorized recruit gates + RU-count extraction, the grouped
+        path's fast lane (finder.py:672-730)."""
+        R = len(row_info)
+        if R == 0:
+            return [], [], 0, 0
+        read_idx = np.fromiter((ri for ri, _ in row_info), dtype=np.int64,
+                               count=R)
+        logp = np.asarray(stats["logp"][:R], dtype=np.float64)
+        n_reads = len(reads)
+        # best orientation per read; the first row wins ties
+        best_val = np.full(n_reads, -np.inf)
+        np.maximum.at(best_val, read_idx, logp)
+        is_best = logp == best_val[read_idx]
+        rows_rev = np.arange(R)[is_best][::-1]
+        first_best = np.full(n_reads, -1, dtype=np.int64)
+        first_best[read_idx[is_best][::-1]] = rows_rev
+        sel = first_best[first_best >= 0]
+        if sel.size == 0:
+            return [], [], 0, 0
+        rates = da.flank_rates(stats)[sel]
+        seq_lens = np.fromiter(
+            (len(reads[i][1]) for i in np.nonzero(first_best >= 0)[0]),
+            dtype=np.int64, count=sel.size)
+        lp = logp[sel]
+        n_matches = np.asarray(stats["n_matches"])[sel]
+        repeat_bp = np.asarray(stats["repeat_bp"])[sel]
+        left_bp = np.asarray(stats["left_flank_bp"])[sel]
+        right_bp = np.asarray(stats["right_flank_bp"])[sel]
+        repeats = np.asarray(stats["repeats"])[sel]
+        min_score = self.recruitment_score_threshold(read_length)
+        gate_rate = rates >= 0.90
+        if min_score is not None:
+            recruited = gate_rate & (lp > min_score)
+        else:
+            recruited = gate_rate & (n_matches >= 0.9 * seq_lens) & \
+                (lp > -seq_lens)
+        selected = np.isfinite(lp) & recruited & \
+            (repeat_bp > self.min_repeat_bp_to_add_read)
+        spanning = selected & (rates >= 0.95) & \
+            (left_bp > self.minimum_left_flanking_size) & \
+            (right_bp > self.minimum_right_flanking_size)
+        covered_repeats = repeats[spanning].tolist()
+        # the reference collects no flanking reads under the accuracy
+        # filter (vntr_finder.py:838-845)
+        flanking_repeats = [] if accuracy_filter else \
+            repeats[selected & ~spanning].tolist()
+        return (covered_repeats, flanking_repeats, int(selected.sum()),
+                int(repeat_bp[selected].sum()))
+
+    def genotype_from_counts(self, covered_repeats, flanking_repeats,
+                             n_selected: int,
+                             accuracy_filter: bool = False,
+                             average_coverage=None) -> GenotypeResult:
+        """Count combination + ML genotype (vntr_finder.py:848-887)."""
+        flanking_repeats = sorted(flanking_repeats)
+        min_valid_flanked = max(covered_repeats) if covered_repeats else 0
+        max_flanking_repeat = [r for r in flanking_repeats
+                               if r == max(flanking_repeats)
+                               and r >= min_valid_flanked] \
+            if flanking_repeats else []
+        if len(max_flanking_repeat) < 5:
+            max_flanking_repeat = []
+        if accuracy_filter:
+            covered_repeats = _filter_by_support(
+                covered_repeats, self.config.accuracy_filter_sr_min_support)
+            max_flanking_repeat = []
+        genotype, max_prob = find_genotype(
+            covered_repeats + max_flanking_repeat, self.is_haploid,
+            self.config.genotype_error_rate)
+        if average_coverage:
+            pattern_occurrences = sum(flanking_repeats) + sum(covered_repeats)
+            if self.coverage_corrector is not None:
+                pattern_occurrences = \
+                    self.coverage_corrector.get_scaled_coverage(
+                        self.reference_vntr, pattern_occurrences)
+            haplotypes = 1 if self.is_haploid else 2
+            estimate = int(pattern_occurrences /
+                           (float(average_coverage) * haplotypes))
+            return GenotypeResult([estimate, estimate], n_selected,
+                                  len(covered_repeats),
+                                  len(flanking_repeats), 0)
+        return GenotypeResult(genotype, n_selected, len(covered_repeats),
+                              len(flanking_repeats), max_prob)
+
+    def run_device(self, lm: LocusModel, batch, lengths) -> dict:
+        """Score a padded batch on the cache's device; numpy stats."""
+        stats = da.read_stats(
+            lm.model, torch.as_tensor(batch, device=self.device),
+            torch.as_tensor(lengths, device=self.device))
+        return {k: v.cpu().numpy() for k, v in stats.items()}
+
+    @time_usage
+    def score_reads(self, mapped_reads, unmapped_reads, read_length: int,
+                    model=None, length_bucket: int = 32):
+        """Batch-score candidate reads; unmapped reads are scored in both
+        orientations and the better one wins (vntr_finder.py:235-246).
+        Returns (ScoredReads, raw stats)."""
+        lm = model if model is not None else self.get_model(read_length)
+        reads, rows, row_info = self.prepare_rows(mapped_reads,
+                                                  unmapped_reads)
+        if not rows:
+            return [], None
+        batch, lengths = self.pad_rows(rows, length_bucket)
+        stats = self.run_device(lm, batch, lengths)
+        return self.collect_scored(reads, row_info, stats), stats
+
+    # -- recruitment gate (reference: vntr_finder.py:179-190) ----------------
+
+    def recruit_read(self, read: ScoredRead, min_score) -> bool:
+        if read.flank_rate < 0.90:
+            return False
+        read_length = len(read.sequence)
+        if min_score is not None and read.logp > min_score:
+            return True
+        return min_score is None and read.n_matches >= 0.9 * read_length \
+            and read.logp > -read_length
+
+    def spans_with_confidence(self, read: ScoredRead) -> bool:
+        # reference: vntr_finder.py:311-322
+        if read.flank_rate < 0.95:
+            return False
+        return (read.left_flank_bp > self.minimum_left_flanking_size and
+                read.right_flank_bp > self.minimum_right_flanking_size)
+
+    # -- top-level Illumina genotyping ---------------------------------------
+
+    def select_reads(self, mapped_reads, unmapped_reads, read_length: int,
+                     model=None):
+        scored, stats = self.score_reads(mapped_reads, unmapped_reads,
+                                         read_length, model=model)
+        return self.select_from_scored(scored, read_length), stats
+
+    @time_usage
+    def find_repeat_count(self, mapped_reads, unmapped_reads,
+                          read_length: int | None = None,
+                          accuracy_filter: bool = False,
+                          average_coverage=None) -> GenotypeResult:
+        """Genotype from candidate reads (vntr_finder.py:789-887); the
+        model-update modes are not ported yet (ROADMAP.md A10)."""
+        if read_length is None:
+            lens = sorted(len(s) for _, s in
+                          (mapped_reads + unmapped_reads)[:5])
+            read_length = lens[len(lens) // 2] if lens else 150
+        selected, _ = self.select_reads(mapped_reads, unmapped_reads,
+                                        read_length)
+        return self.genotype_from_selected(selected, accuracy_filter,
+                                           average_coverage)
+
+    def select_from_scored(self, scored, read_length: int):
+        """Recruitment gates over already-scored reads."""
+        min_score = self.recruitment_score_threshold(read_length)
+        return [read for read in scored
+                if np.isfinite(read.logp)
+                and self.recruit_read(read, min_score)
+                and read.repeat_bp > self.min_repeat_bp_to_add_read]
+
+    def genotype_from_selected(self, selected, accuracy_filter: bool = False,
+                               average_coverage=None) -> GenotypeResult:
+        """RU counting + diploid ML genotype from selected reads
+        (vntr_finder.py:806-887)."""
+        covered_repeats = []
+        flanking_repeats = []
+        for read in selected:
+            if self.spans_with_confidence(read):
+                covered_repeats.append(read.repeats)
+            elif not accuracy_filter:
+                flanking_repeats.append(read.repeats)
+        logging.info("covered repeats: %s", covered_repeats)
+        logging.info("flanking repeats: %s", sorted(flanking_repeats))
+        return self.genotype_from_counts(covered_repeats, flanking_repeats,
+                                         len(selected), accuracy_filter,
+                                         average_coverage)
+
+
+def _filter_by_support(counts: list[int], min_support: int) -> list[int]:
+    from collections import Counter
+    out = []
+    for key, cnt in Counter(counts).most_common():
+        if cnt >= min_support:
+            out.extend([key] * cnt)
+    return out

@@ -1,0 +1,392 @@
+"""Structured Viterbi with inline provenance and per-read analytics.
+
+Counterpart of advntr_tpu/ops/pallas_viterbi.py:507-918.  Two kernels
+carry it, both hand-written CUDA C++ (``csrc/``):
+
+- ``fused_forward`` (B1): the Viterbi forward over the silent-eliminated
+  structured profile HMM.  Every max carries its argmax origin, and the
+  first candidate wins ties.  It returns the best score and end state per
+  read and two origin planes, (L, B, 2P) for M|I with the base-match bit
+  packed on the M half, and (L, B, 2nb) holding the I0 origins and the
+  previous column's resolved hub origins.
+- ``backward_stats`` (B2): walks each read back from its end state through
+  the planes, writes the struct-space path and accumulates the genotyping
+  statistics on the way (reference hmm_utils.py:155-286 semantics).
+
+Each has a plain PyTorch twin in this module (``*_reference``).  The
+wrapper runs the twin for CPU tensors only; for CUDA tensors it launches
+the kernel or raises.  The twins follow the reference's arithmetic step by
+step (the same float32 adds in the same order, strict ``>`` picks, shifts
+that wrap exactly like the reference's lane rolls), so their results are
+the reference kernel's results.
+
+Origin codes live in struct space: M_p = p, I_p = P+p, I0_b = 2P+b, and
+the hub sentinel 2P+nb+b stands for "the hub of block b one column back".
+Planes store code + 1, so the first column's -1 lands on 0.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from advntr_tpu.models.graph import R_PREFIX, R_REPEAT, R_SUFFIX
+from advntr_tpu_torch.ops import _kernels
+from advntr_tpu_torch.ops.struct_model import (
+    LN05, MBIT16, MBIT32, NEG, TorchStructModel, origin_params)
+
+BIG = 1 << 30
+MIN_BP_IN_REPEAT = 3  # reference: hmm_utils.py:165
+# the reference decodes longer reads with a checkpointed traceback
+# (finder.py:96) rather than full origin planes; that path is not ported
+MAX_COLUMNS = 2048
+
+# columns of the (B, N_STATS) int32 statistics from the backward walk
+(S_NMATCH, S_REPBP, S_LBP, S_RBP, S_LMATCH, S_RMATCH,
+ S_STARTS, S_ENDS, S_FS, S_LS, S_FE, S_LE) = range(12)
+N_STATS = 16
+
+STAT_KEYS = ("repeats", "n_matches", "repeat_bp", "left_flank_bp",
+             "right_flank_bp", "left_flank_matches", "right_flank_matches")
+
+
+def _pick(v1, o1, v2, o2):
+    """Tropical (max, argmax-origin) combine; the first argument wins ties."""
+    take2 = v2 > v1
+    return torch.where(take2, v2, v1), torch.where(take2, o2, o1)
+
+
+def _max_first_idx(v):
+    """(max, index of the first max) along axis 1, keepdim."""
+    mx = v.max(dim=1, keepdim=True).values
+    ii = torch.arange(v.shape[1], device=v.device).expand_as(v)
+    idx = torch.where(v == mx, ii, v.shape[1]).min(dim=1, keepdim=True).values
+    return mx, idx
+
+
+def _check_inputs(m: TorchStructModel, seqs, lengths):
+    if seqs.dim() != 2 or lengths.shape != (seqs.shape[0],):
+        raise ValueError(f"seqs must be (B, L) and lengths (B,); got "
+                         f"{tuple(seqs.shape)} and {tuple(lengths.shape)}")
+    if seqs.device != m.device or lengths.device != m.device:
+        raise ValueError(f"inputs on {seqs.device}/{lengths.device}, model "
+                         f"on {m.device}")
+
+
+def fused_forward_reference(m: TorchStructModel, seqs, lengths,
+                            origin32: bool = False):
+    """Plain twin of B1 (pallas_viterbi.py:305-504, one column per step).
+
+    seqs (B, L) integer bases, clipped to 0..3; lengths (B,).  Returns
+    (best (B,) f32, bstate (B,) int32, oMI (L, B, 2P), oXH (L, B, 2nb))."""
+    B, L = seqs.shape
+    P, nb, C = m.P, m.nb, m.C
+    dev = seqs.device
+    odt, mbit = origin_params(P, nb, origin32)
+    i32 = torch.int32
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)
+    neg, ln05, r_unit = f32(NEG), f32(LN05), f32(m.r_unit)
+    seqs = seqs.long().clamp(0, 3)
+    lengths = lengths.to(i32)
+    row = m.row
+
+    idxM = torch.arange(P, dtype=i32, device=dev)
+    idxI = idxM + P
+    blk = m.blk_idx.long()
+    blkid = m.blk_idx + 2 * P                       # I0 code of p's block
+    hubsent_p = blkid + nb                          # hub sentinel of p's block
+    idxI0 = torch.arange(nb, dtype=i32, device=dev) + 2 * P
+    hubsent_b = idxI0 + nb
+    ORIG_A = torch.cat([idxM - 1, idxM])
+    ORIG_B = torch.cat([idxI - 1, idxI])
+    W_A = torch.cat([row("a_mm"), row("mi")])
+    W_B = torch.cat([row("a_im"), row("ii")])
+    W_C = torch.cat([row("a_dm"), row("di")])
+    W_D = torch.cat([row("md"), row("idw")])
+    START = torch.cat([row("M_start"), row("I_start")])
+    LE = torch.cat([row("le_M"), row("le_I")])
+    eMT, eIT, eI0T = m.eM.T, m.eI.T, m.eI0.T
+    exp_base = m.exp_base.long()
+    unit_last = m.unit_last.long()
+    ccol = torch.arange(C, device=dev)
+    negP = neg.expand(B, P)
+
+    MI = neg.expand(B, 2 * P).clone()
+    D = neg.expand(B, P).clone()
+    Do = torch.zeros(B, P, dtype=i32, device=dev)
+    I0 = neg.expand(B, nb).clone()
+    hub = neg.expand(B, nb).clone()
+    hubpo = torch.zeros(B, nb, dtype=i32, device=dev)
+    oMI = torch.empty(L, B, 2 * P, dtype=odt, device=dev)
+    oXH = torch.empty(L, B, 2 * nb, dtype=odt, device=dev)
+
+    for t in range(L):
+        base = seqs[:, t]
+        eMI = torch.cat([eMT[base], eIT[base]], dim=1)
+        eI0 = eI0T[base]
+        act = (t < lengths)[:, None]
+
+        # ---- emitting layer: sources from the previous column ----
+        v5, o5 = _pick(hub[:, blk] + row("ent_m"), hubsent_p.expand(B, P),
+                       I0[:, blk] + row("i0_m"), blkid.expand(B, P))
+        rollMI = torch.roll(MI, 1, dims=1)
+        candA = torch.cat([rollMI[:, :P], MI[:, :P]], dim=1) + W_A
+        candB = torch.cat([rollMI[:, P:], MI[:, P:]], dim=1) + W_B
+        candC = torch.cat([torch.roll(D, 1, dims=1), D], dim=1) + W_C
+        origC = torch.cat([torch.roll(Do, 1, dims=1), Do], dim=1)
+        v, o = _pick(candA, ORIG_A.expand(B, -1), candB, ORIG_B.expand(B, -1))
+        v, o = _pick(v, o, candC, origC)
+        v, o = _pick(v, o, torch.cat([v5, negP], dim=1),
+                     torch.cat([o5, o5], dim=1))
+        MIn, OMIn = eMI + v, o
+        v0, o0 = _pick(I0 + row("i0_i"), idxI0.expand(B, nb),
+                       hub + row("hub_i0"), hubsent_b.expand(B, nb))
+        I0n, OI0n = eI0 + v0, o0
+        if t == 0:
+            MIn = START + eMI
+            I0n = row("I0_start") + eI0
+            OMIn = torch.full_like(OMIn, -1)
+            OI0n = torch.full_like(OI0n, -1)
+        MIn = torch.where(act, MIn, MI)           # length freeze
+        I0n = torch.where(act, I0n, I0)
+
+        # ---- silent layer: delete chain, unit chain, hubs ----
+        bcand = torch.roll(MIn, 1, dims=1) + W_D
+        bv, bo = _pick(bcand[:, :P], (idxM - 1).expand(B, P),
+                       bcand[:, P:], (idxI - 1).expand(B, P))
+        Din, Dino = _pick(bv, bo, I0n[:, blk] + row("i0_d"),
+                          blkid.expand(B, P))
+        for r in range(m.Wd.shape[0]):
+            k = 1 << r
+            if k >= P:
+                break
+            rv = torch.roll(Din, k, dims=1) + m.Wd[r]
+            ro = torch.roll(Dino, k, dims=1)
+            take = rv > Din
+            Din = torch.where(take, rv, Din)
+            Dino = torch.where(take, ro, Dino)
+        qv, qo = _pick(MIn[:, :P] + row("xm"), idxM.expand(B, P),
+                       MIn[:, P:] + row("xi"), idxI.expand(B, P))
+        qv, qo = _pick(qv, qo, Din + row("xd"), Dino)
+        q, qorig = qv[:, unit_last], qo[:, unit_last]
+        if m.suffix_last >= 0:
+            sufq = qv[:, m.suffix_last:m.suffix_last + 1]
+            sufqo = qo[:, m.suffix_last:m.suffix_last + 1]
+        else:                                     # empty extraction column
+            sufq = torch.zeros(B, 1, device=dev)
+            sufqo = torch.zeros(B, 1, dtype=i32, device=dev)
+        us = torch.where(ccol == 0, sufq, torch.roll(q, 1, dims=1) + ln05)
+        uso = torch.where(ccol == 0, sufqo, torch.roll(qorig, 1, dims=1))
+        for r in range(m.Wu.shape[0]):
+            k = 1 << r
+            if k >= C:
+                break
+            us, uso = _pick(us, uso, torch.roll(us, k, dims=1) + m.Wu[r],
+                            torch.roll(uso, k, dims=1))
+        uev, ueo = _pick(q, qorig, us + r_unit, uso)
+        pstart, ci = _max_first_idx(uev + ln05)
+        pstarto = torch.gather(ueo, 1, ci)
+        n_pre = nb - 1 - C
+        hubn = torch.cat([neg.expand(B, 1), us, pstart.expand(B, n_pre)], 1)
+        hubon = torch.cat([torch.full((B, 1), -1, dtype=i32, device=dev),
+                           uso, pstarto.expand(B, n_pre)], dim=1)
+        Dn, Don = _pick(Din, Dino, hubn[:, blk] + row("hub_d"),
+                        hubsent_p.expand(B, P))
+
+        # ---- plane writes and state commit ----
+        match = (base[:, None] == exp_base).to(i32) * mbit
+        oMI[t] = (OMIn + 1 + torch.cat([match, torch.zeros_like(match)],
+                                       dim=1)).to(odt)
+        oXH[t] = (torch.cat([OI0n, hubpo], dim=1) + 1).to(odt)
+        MI, I0 = MIn, I0n
+        D = torch.where(act, Dn, D)
+        Do = torch.where(act, Don, Do)
+        hub = torch.where(act, hubn, hub)
+        hubpo = torch.where(act, hubon, hubpo)
+
+    fin = torch.cat([MI + LE, I0 + row("le_I0")], dim=1)
+    best, bstate = _max_first_idx(fin)
+    return best[:, 0], bstate[:, 0].to(i32), oMI, oXH
+
+
+def _take_or(table, idx, fill):
+    """table[idx] where 0 <= idx < len(table), else ``fill`` (what the
+    reference's masked row-sum yields for an index outside the row)."""
+    ok = (idx >= 0) & (idx < table.shape[0])
+    return torch.where(ok, table[idx.clamp(0, table.shape[0] - 1)], fill)
+
+
+def backward_stats_reference(m: TorchStructModel, lengths, bstate, oMI, oXH):
+    """Plain twin of B2 (pallas_viterbi.py:580-733), one gather per read
+    per column.  Returns (path (B, L) int32 struct indices, stats
+    (B, N_STATS) int32)."""
+    L, B, P2 = oMI.shape
+    P, nb = P2 // 2, oXH.shape[2] // 2
+    mbit = MBIT32 if oMI.dtype == torch.int32 else MBIT16
+    dev = oMI.device
+    lengths = lengths.long()
+    rows = torch.arange(B, device=dev)
+    z = torch.zeros(B, dtype=torch.long, device=dev)
+    cur = bstate.long()
+    rnext, unext = z.clone(), z.clone()
+    nm, repbp, lbp, rbp, lmt, rmt, starts, ends = (z.clone() for _ in range(8))
+    fs, ls = z + BIG, z - BIG
+    fe, le = z + BIG, z - BIG
+    path = torch.empty(B, L, dtype=torch.int32, device=dev)
+
+    def lookup(plane, idx):
+        ok = (idx >= 0) & (idx < plane.shape[1])
+        return torch.where(
+            ok, plane[rows, idx.clamp(0, plane.shape[1] - 1)].long(), 0)
+
+    for t in range(L - 1, -1, -1):
+        path[:, t] = cur.to(torch.int32)
+        sel = torch.where(cur < 2 * P, lookup(oMI[t], cur),
+                          lookup(oXH[t], cur - 2 * P))
+        m_bit = sel >= mbit
+        prev = (sel & (mbit - 1)) - 1
+        selH = lookup(oXH[t], prev - 2 * P) - 1
+        prev = torch.where(prev >= 2 * P + nb, selH, prev)
+        region = _take_or(m.region, cur, 0).long()
+        unit = _take_or(m.unit, cur, -1).long()
+
+        valid = t < lengths
+        is_m = (cur < P) & valid
+        in_suf, in_rep, in_pre = (region == R_SUFFIX, region == R_REPEAT,
+                                  region == R_PREFIX)
+        nm += is_m
+        repbp += in_rep & valid
+        lbp += in_suf & valid
+        rbp += in_pre & valid
+        bm = is_m & m_bit
+        lmt += bm & in_suf
+        rmt += bm & in_pre
+
+        # end hop (bp = length, applied at column length-1)
+        egg = (t == lengths - 1) & (lengths >= MIN_BP_IN_REPEAT) & \
+            ((in_rep & (cur >= P)) | in_suf)
+        ends += egg
+        fe = torch.minimum(fe, torch.where(egg, lengths, BIG))
+        le = torch.maximum(le, torch.where(egg, lengths, -BIG))
+
+        # hop h = t+1 (path[t] -> path[t+1])
+        h = t + 1
+        base = torch.where(in_rep, unit, -1)
+        sr = unext - base
+        er = sr - in_suf.long()
+        nrep, npre = rnext == R_REPEAT, rnext == R_PREFIX
+        hop_us = torch.where(nrep, sr, (npre & in_suf).long()).clamp(min=0)
+        hop_ue = torch.where(nrep, er,
+                             (npre & (in_rep | in_suf)).long()).clamp(min=0)
+        hop_ok = h < lengths
+        cs = torch.where(hop_ok & (lengths - h >= MIN_BP_IN_REPEAT), hop_us, 0)
+        ce = torch.where(hop_ok & (h >= MIN_BP_IN_REPEAT), hop_ue, 0)
+        starts += cs
+        ends += ce
+        fs = torch.minimum(fs, torch.where(cs > 0, h, BIG))
+        ls = torch.maximum(ls, torch.where(cs > 0, h, -BIG))
+        fe = torch.minimum(fe, torch.where(ce > 0, h, BIG))
+        le = torch.maximum(le, torch.where(ce > 0, h, -BIG))
+
+        # start hop (hop 0, at column 0): only the starts side contributes
+        if t == 0:
+            j0u0m = in_rep & (unit == 0) & (cur < P)
+            s_us = torch.where(in_rep & ~j0u0m, unit + 1, in_pre.long())
+            cs0 = torch.where(lengths >= MIN_BP_IN_REPEAT, s_us, 0)
+            starts += cs0
+            fs = torch.minimum(fs, torch.where(cs0 > 0, 0, BIG))
+            ls = torch.maximum(ls, torch.where(cs0 > 0, 0, -BIG))
+
+        rnext, unext = region, unit
+        cur = torch.where((t <= lengths - 1) & (t >= 1), prev, cur)
+
+    stats = torch.stack([nm, repbp, lbp, rbp, lmt, rmt, starts, ends,
+                         fs, ls, fe, le] + [z] * (N_STATS - 12), dim=1)
+    return path, stats.to(torch.int32)
+
+
+def fused_forward(m: TorchStructModel, seqs, lengths, origin32: bool = False):
+    """B1: the CUDA kernel for CUDA tensors, the plain twin for CPU ones."""
+    _check_inputs(m, seqs, lengths)
+    if seqs.is_cuda:
+        return _kernels.forward(m, seqs, lengths, origin32)
+    if seqs.device.type == "cpu":
+        return fused_forward_reference(m, seqs, lengths, origin32)
+    raise ValueError(f"no fused_forward for device {seqs.device}")
+
+
+def backward_stats(m: TorchStructModel, lengths, bstate, oMI, oXH):
+    """B2: the CUDA kernel for CUDA tensors, the plain twin for CPU ones."""
+    if oMI.is_cuda:
+        return _kernels.backward(m, lengths, bstate, oMI, oXH)
+    if oMI.device.type == "cpu":
+        return backward_stats_reference(m, lengths, bstate, oMI, oXH)
+    raise ValueError(f"no backward_stats for device {oMI.device}")
+
+
+def finish_stats(best, stats, path=None):
+    """The analytics dict from the walk's (B, N_STATS) output: the repeats
+    formula tail of analytics_from_path on O(B) scalars
+    (pallas_viterbi.py:876-897)."""
+    starts, ends = stats[:, S_STARTS], stats[:, S_ENDS]
+    fs, ls, fe, le = (stats[:, S_FS], stats[:, S_LS], stats[:, S_FE],
+                      stats[:, S_LE])
+    have_all = (fs != BIG) & (ls != -BIG) & (fe != BIG) & (le != -BIG)
+    delta = (have_all & (fe < fs) & (ls > le)).to(torch.int32)
+    out = {
+        "logp": best,
+        "repeats": torch.maximum(starts, ends) + delta,
+        "n_matches": stats[:, S_NMATCH],
+        "repeat_bp": stats[:, S_REPBP],
+        "left_flank_bp": stats[:, S_LBP],
+        "right_flank_bp": stats[:, S_RBP],
+        "left_flank_matches": stats[:, S_LMATCH],
+        "right_flank_matches": stats[:, S_RMATCH],
+    }
+    if path is not None:
+        out["path"] = path
+    return out
+
+
+def _pipeline(m, seqs, lengths, origin32, forward=fused_forward,
+              backward=backward_stats):
+    if seqs.shape[-1] > MAX_COLUMNS:
+        raise NotImplementedError(
+            f"reads of {seqs.shape[-1]} columns need the checkpointed "
+            "traceback, which is not ported yet (ROADMAP.md A9)")
+    best, bstate, oMI, oXH = forward(m, seqs, lengths, origin32)
+    path, stats = backward(m, lengths, bstate, oMI, oXH)
+    # a length-1 read's path is its end state (pallas_viterbi.py:836-837)
+    path = torch.where((lengths == 1)[:, None], bstate[:, None], path)
+    return best, bstate, path, stats
+
+
+def viterbi_stats(m: TorchStructModel, seqs, lengths,
+                  return_path: bool = False, origin32: bool = False):
+    """Viterbi + traceback + per-read analytics: a dict of (B,) tensors,
+    with the artifact-space path (B, L) when ``return_path``."""
+    best, _, path_s, stats = _pipeline(m, seqs, lengths, origin32)
+    path = m.struct_to_art[path_s.long()] if return_path else None
+    return finish_stats(best, stats, path)
+
+
+def viterbi_stats_reference(m: TorchStructModel, seqs, lengths,
+                            return_path: bool = False,
+                            origin32: bool = False):
+    """viterbi_stats through the plain twins, on any device: what the
+    kernels are held against on the card."""
+    best, _, path_s, stats = _pipeline(
+        m, seqs, lengths, origin32, forward=fused_forward_reference,
+        backward=backward_stats_reference)
+    path = m.struct_to_art[path_s.long()] if return_path else None
+    return finish_stats(best, stats, path)
+
+
+def viterbi_batch(m: TorchStructModel, seqs, lengths,
+                  return_path: bool = True, origin32: bool = False):
+    """(best (B,), end_state (B,), path (B, L) or None), states in
+    artifact space: the contract of viterbi_struct_batch."""
+    best, bstate, path_s, _ = _pipeline(m, seqs, lengths, origin32)
+    end_state = m.struct_to_art[bstate.long()]
+    if not return_path:
+        return best, end_state, None
+    return best, end_state, m.struct_to_art[path_s.long()]

@@ -1,0 +1,136 @@
+"""Seeded synthetic loci, reads and panels for the port's tests and its
+on-card smoke run.  Host-only: every model and read comes from the
+reference's jax-free builders, so the port and the reference score the
+same inputs."""
+
+from __future__ import annotations
+
+import os
+import random
+
+from advntr_tpu.engine.simulate import simulate_diploid_reads
+from advntr_tpu.io.bam import BamRead, BamWriter, build_bai
+from advntr_tpu.models.compiler import compile_graph
+from advntr_tpu.models.db import (create_vntrs_database,
+                                  save_reference_vntr_to_database)
+from advntr_tpu.models.graph import build_read_matcher
+from advntr_tpu.models.profile import profile_for_repeats
+from advntr_tpu.models.reference_vntr import ReferenceVNTR
+from advntr_tpu.models.struct_compiler import build_structured, pad_structured
+
+CSTB_PATTERN = "CGCGGGGCGGGG"   # the CSTB dodecamer
+
+
+def rand_seq(seed: int, n: int) -> str:
+    rng = random.Random(seed)
+    return "".join(rng.choice("ACGT") for _ in range(n))
+
+
+def round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def padded_structured(graph, art, pos_bucket: int = 64,
+                      unit_bucket: int = 8):
+    """The structured model of a compiled read-matcher graph, padded like
+    the engine's cache pads it (P to a bucket above P, C to a multiple of
+    ``unit_bucket``)."""
+    sm = build_structured(graph, art)
+    return pad_structured(sm, art, round_up(sm.P + 1, pos_bucket),
+                          round_up(sm.C, unit_bucket))
+
+
+def locus_model(units, left: str, right: str, copies: int,
+                err: float = 0.05, pos_bucket: int = 64,
+                unit_bucket: int = 8):
+    """(art, padded sm) of a read-matcher model."""
+    trans, emis = profile_for_repeats(list(units), err)
+    g = build_read_matcher(left, right, trans, emis, copies, err)
+    art = compile_graph(g)
+    return art, padded_structured(g, art, pos_bucket, unit_bucket)
+
+
+def write_cstb_sample(workdir: str, read_length: int = 100,
+                      coverage: int = 40):
+    """The CSTB 2/5 fixture of tests/test_cli_end_to_end.py: one-locus DB
+    and an indexed BAM, half the reads mapped over the locus, half
+    unmapped.  Returns (db path, bam path)."""
+    left, right, start = rand_seq(1, 300), rand_seq(2, 300), 5000
+    db = os.path.join(workdir, "models.db")
+    ref = ReferenceVNTR(301645, CSTB_PATTERN, start, "chr21", "CSTB",
+                        "Promoter", 3)
+    ref.repeat_segments = [CSTB_PATTERN] * 3
+    ref.left_flanking_region, ref.right_flanking_region = left, right
+    create_vntrs_database(db)
+    save_reference_vntr_to_database(ref, db)
+    reads, _, _ = simulate_diploid_reads(
+        left, CSTB_PATTERN, 2, 5, right, read_length=read_length,
+        coverage=coverage, error_rate=0.002, seed=5)
+    mapped, unmapped = [], []
+    for i, (name, seq) in enumerate(reads):
+        if i % 2 == 0:
+            mapped.append(BamRead(
+                query_name=name, flag=0, reference_id=0,
+                reference_start=start - 50 + (i % 100), mapq=60,
+                cigar=[(0, len(seq))], seq=seq, qual=[38] * len(seq)))
+        else:
+            unmapped.append(BamRead(
+                query_name=name, flag=4, reference_id=-1,
+                reference_start=-1, mapq=0, cigar=[], seq=seq,
+                qual=[38] * len(seq)))
+    mapped.sort(key=lambda r: r.reference_start)
+    bam = os.path.join(workdir, "sample.bam")
+    with BamWriter(bam, ["chr21"], [100000]) as w:
+        for r in mapped + unmapped:
+            w.write(r)
+    build_bai(bam)
+    return db, bam
+
+
+def write_panel(workdir: str, n_loci: int = 16, read_length: int = 150,
+                coverage: int = 30, seed: int = 0):
+    """A multi-locus panel: ``n_loci`` loci whose motifs (6 bp and 12 bp)
+    land in at least two model-shape buckets, with diploid unmapped reads
+    at ``coverage``.  Returns (db path, bam path, {vid: (a, b)} truth)."""
+    rng = random.Random(seed)
+    db = os.path.join(workdir, "panel.db")
+    create_vntrs_database(db)
+    truth = {}
+    all_reads = []
+    for i in range(n_loci):
+        vid = 1000 + i
+        plen = (6, 12)[i % 2]
+        pattern = "".join(rng.choice("ACGT") for _ in range(plen))
+        ref = ReferenceVNTR(vid, pattern, 10000 + 5000 * i, "chr1")
+        ref.repeat_segments = [pattern] * 3
+        ref.left_flanking_region = rand_seq(seed * 1000 + 2 * i, 300)
+        ref.right_flanking_region = rand_seq(seed * 1000 + 2 * i + 1, 300)
+        save_reference_vntr_to_database(ref, db)
+        a, b = sorted(rng.sample(range(2, 7), 2))
+        truth[vid] = (a, b)
+        reads, _, _ = simulate_diploid_reads(
+            ref.left_flanking_region, pattern, a, b,
+            ref.right_flanking_region, read_length=read_length,
+            coverage=coverage, error_rate=0.002, seed=seed * 100 + i)
+        all_reads += [(f"{vid}_{name}", seq) for name, seq in reads]
+    bam = os.path.join(workdir, "panel.bam")
+    with BamWriter(bam, ["chr1"], [200000]) as w:
+        for name, seq in all_reads:
+            w.write(BamRead(name, 4, -1, -1, 0, [], seq, [38] * len(seq)))
+    return db, bam, truth
+
+
+def encode_reads(reads: list[str], pad_to: int):
+    """(B, pad_to) int8 bases and (B,) int32 lengths, as the engine pads."""
+    from advntr_tpu import dna
+    rows = [dna.encode(r) for r in reads]
+    return dna.pad_batch(rows, pad_to=pad_to, multiple=32)
+
+
+def rescore(art, path, codes) -> float:
+    """f64 log-probability of an artifact-space path over a read."""
+    s = float(art.log_start[path[0]] + art.log_E[path[0], codes[0]])
+    for t in range(1, len(codes)):
+        s += art.log_T[path[t - 1], path[t]] + art.log_E[path[t], codes[t]]
+    return s + float(art.log_end[path[-1]])
+

@@ -1,0 +1,419 @@
+#!/usr/bin/env python
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases (any failed check exits non-zero):
+
+1. device: requires CUDA and a compute-capability 9.0 card; prints the
+   card's name and power limit as nvidia-smi reports them;
+2. build: compiles advntr_tpu_torch/csrc/*.cu with nvcc for sm_90a;
+3. kernels at the production shape (the CSTB locus, n_states 927, P 512;
+   4096 simulated 150 bp reads, seed 9, padded to L=160) against their
+   plain PyTorch twins on the card: B2 bit-identical on the same planes,
+   the read_stats dicts equal, logp within rtol 1e-4 / atol 1e-2, 256
+   sampled paths rescoring in float64 to the optimum; also a B=5 batch and
+   a ragged batch with length-1 rows;
+4. timing: median of 10 CUDA-event-timed runs after warm-up, kernels and
+   twins, as reads/s;
+   also the recruitment filter's top-M count (plain torch ops) at the
+   chunk shape of a 6,719-locus panel, against the same call on the host;
+5. end to end: the port's CLI on a 24-locus, two-bucket panel (150 bp
+   reads, coverage 30; more loci than the filter's top_m of 16, so
+   recruitment takes the top-M path as real panels do) and on the CSTB
+   2/5 fixture, with --device cuda and --device cpu: identical outputs,
+   CSTB 2/5, both kernels launched.  Prints the cold run's stage totals.
+
+    python3 chip_smoke.py --profile
+
+also reruns the warm panel under torch.profiler and prints its wall time,
+the device time per kernel, the device's idle share and the stage totals.
+
+The last three lines are the nvidia-smi line, one JSON object of the
+kernels, and {"ok": true, "device": {...}}.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+LOGP_TOL = dict(rtol=1e-4, atol=1e-2)
+N_READS, READ_LEN, L_PAD = 4096, 150, 160
+PANEL_LOCI = 24
+# recruitment cell: a 6,719-locus panel, ~40 15-mer keywords per locus,
+# one chunk of 150 bp reads
+RECRUIT_LOCI, RECRUIT_KEYWORDS = 6719, 40
+
+
+def fail(msg: str) -> None:
+    print("chip_smoke: FAILED: " + msg, file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def check(cond, msg: str) -> None:
+    if not cond:
+        fail(msg)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+    """Median milliseconds of ``iters`` CUDA-event-timed calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def phase_device() -> str:
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    cap = torch.cuda.get_device_capability(0)
+    log(f"device: {torch.cuda.get_device_name(0)} | {smi} | torch "
+        f"{torch.__version__} | CUDA {torch.version.cuda} | capability {cap}")
+    check(cap == (9, 0), f"compute capability {cap}, the kernels need (9, 0)")
+    return smi
+
+
+def phase_build(kernels) -> None:
+    shutil.rmtree(kernels.BUILD_DIR, ignore_errors=True)
+    kernels.build()
+    log(f"build: nvcc sm_90a, {kernels.BUILD_SECONDS:.2f} s")
+
+
+def phase_kernels(dev):
+    from bench import build_locus, simulate_reads
+    from advntr_tpu_torch.ops import viterbi_fused as vf
+    from advntr_tpu_torch.ops.struct_model import TorchStructModel
+    from advntr_tpu_torch.synthetic import (encode_reads, padded_structured,
+                                            rescore)
+
+    graph, art, left, right, pattern = build_locus(READ_LEN)
+    sm = padded_structured(graph, art, pos_bucket=128)
+    m = TorchStructModel.from_payload(art, sm, dev)
+    check((art.n_states, m.P, m.C, m.nb) == (927, 512, 16, 18),
+          f"production locus shape {(art.n_states, m.P, m.C, m.nb)}")
+    reads = simulate_reads(left, pattern, right, READ_LEN, N_READS, seed=9)
+    batch, lengths = encode_reads(reads, READ_LEN)
+    check(batch.shape == (N_READS, L_PAD), f"batch shape {batch.shape}")
+    seqs = torch.as_tensor(batch, device=dev)
+    lens = torch.as_tensor(lengths, device=dev)
+
+    # B1 against its twin
+    got = vf.fused_forward(m, seqs, lens)
+    want = vf.fused_forward_reference(m, seqs, lens)
+    torch.cuda.synchronize()
+    b1_err = float((got[0] - want[0]).abs().max())
+    check(torch.allclose(got[0], want[0], **LOGP_TOL), "B1 logp vs twin")
+    check(all(torch.equal(g, w) for g, w in zip(got[1:], want[1:])),
+          "B1 bstate/origin planes differ from the twin")
+    log(f"B1: max |logp - twin| {b1_err}; bstate and both origin planes "
+        f"bit-identical to the twin")
+
+    # B2 against its twin, on B1's own planes and on the twin's
+    b2_err = 0.0
+    for name, (_, bstate, oMI, oXH) in (("B1's", got), ("the twin's", want)):
+        path, stats = vf.backward_stats(m, lens, bstate, oMI, oXH)
+        path_w, stats_w = vf.backward_stats_reference(m, lens, bstate, oMI,
+                                                      oXH)
+        torch.cuda.synchronize()
+        check(torch.equal(path, path_w),
+              f"B2 path differs from the twin on {name} planes")
+        check(torch.equal(stats, stats_w),
+              f"B2 stats differ from the twin on {name} planes")
+        b2_err = max(b2_err, float((stats - stats_w).abs().max()))
+    log("B2: path and stats bit-identical to the twin on B1's planes and "
+        "on the twin's")
+
+    # the full read_stats dict
+    out = vf.viterbi_stats(m, seqs, lens, return_path=True)
+    ref = vf.viterbi_stats_reference(m, seqs, lens, return_path=True)
+    check(torch.allclose(out["logp"], ref["logp"], **LOGP_TOL),
+          "read_stats logp vs plain")
+    for k in vf.STAT_KEYS:
+        check(torch.equal(out[k], ref[k]), f"read_stats[{k}] vs plain")
+    rs_err = float((out["logp"] - ref["logp"]).abs().max())
+    log(f"read_stats: every statistic equal to the plain pipeline; max "
+        f"|logp diff| {rs_err}")
+
+    # sampled paths rescore in float64 to the optimum
+    rng = np.random.default_rng(9)
+    logp = out["logp"].cpu().numpy()
+    paths = out["path"].cpu().numpy()
+    for b in rng.choice(N_READS, min(256, N_READS), replace=False):
+        n = int(lengths[b])
+        s = rescore(art, paths[b][:n], batch[b][:n].astype(np.int64))
+        check(abs(s - float(logp[b])) <= 1e-2 + 1e-4 * abs(float(logp[b])),
+              f"read {b}: path rescores to {s}, optimum {logp[b]}")
+    log("paths: 256 sampled paths rescore in float64 to the optimum")
+
+    # a B=5 batch and a ragged batch with length-1 rows
+    ragged = [reads[0], reads[1][:1], reads[2][:37], "A", reads[3][:150],
+              reads[4][:2], reads[5][:90], "C", reads[6][:120]]
+    for name, rows in (("B=5", reads[:5]), ("ragged", ragged)):
+        b, ln = encode_reads(rows, 0)
+        s_, l_ = (torch.as_tensor(b, device=dev),
+                  torch.as_tensor(ln, device=dev))
+        o = vf.viterbi_stats(m, s_, l_, return_path=True)
+        r = vf.viterbi_stats_reference(m, s_, l_, return_path=True)
+        check(torch.allclose(o["logp"], r["logp"], **LOGP_TOL),
+              f"{name} logp")
+        check(all(torch.equal(o[k], r[k]) for k in vf.STAT_KEYS + ("path",)),
+              f"{name} statistics or paths differ from the plain pipeline")
+    log("small batches: B=5 and ragged (length-1 rows) equal the plain "
+        "pipeline")
+    return m, seqs, lens, (b1_err, b2_err, rs_err)
+
+
+def phase_timing(m, seqs, lens):
+    from advntr_tpu_torch.ops import viterbi_fused as vf
+    best, bstate, oMI, oXH = vf.fused_forward_reference(m, seqs, lens)
+    runs = {
+        "B1": (lambda: vf.fused_forward(m, seqs, lens),
+               lambda: vf.fused_forward_reference(m, seqs, lens)),
+        "B2": (lambda: vf.backward_stats(m, lens, bstate, oMI, oXH),
+               lambda: vf.backward_stats_reference(m, lens, bstate, oMI,
+                                                   oXH)),
+        "read_stats": (lambda: vf.viterbi_stats(m, seqs, lens),
+                       lambda: vf.viterbi_stats_reference(m, seqs, lens)),
+    }
+    ms = {}
+    for name, (kernel, plain) in runs.items():
+        # plain, kernel, kernel, plain: both see the same card state
+        p1, k1 = time_ms(plain), time_ms(kernel)
+        k2, p2 = time_ms(kernel), time_ms(plain)
+        ms[name] = (min(k1, k2), min(p1, p2))
+        log(f"timing {name}: kernel {ms[name][0]:.3f} ms "
+            f"({N_READS / ms[name][0] * 1e3:.0f} reads/s), plain "
+            f"{ms[name][1]:.3f} ms ({N_READS / ms[name][1] * 1e3:.0f} "
+            f"reads/s) at B={N_READS}, L={L_PAD}, P={m.P}")
+    return ms
+
+
+def phase_recruitment(dev):
+    """The recruitment filter's top-M count (plain torch ops) at one chunk
+    of a 6,719-locus panel: equal to the same call on the host, timed, and
+    its peak device memory beside the size of the count plane."""
+    from advntr_tpu_torch.ops import kmer_filter as kf
+    rng = np.random.default_rng(9)
+    kw = rng.integers(0, 4 ** 15, (RECRUIT_LOCI, RECRUIT_KEYWORDS))
+    locus = np.repeat(np.arange(RECRUIT_LOCI), RECRUIT_KEYWORDS)
+    order = np.lexsort((locus, kw.ravel()))
+    codes = kw.ravel()[order].astype(np.int32)
+    locus = locus[order].astype(np.int32)
+    max_dup = int(np.unique(codes, return_counts=True)[1].max())
+    B = kf.recruit_chunk(RECRUIT_LOCI)
+    # each 150 bp read is ten keywords drawn from three loci, so counts
+    # range over 0..10 with many ties inside a read's top 16
+    loci3 = rng.integers(0, RECRUIT_LOCI, (B, 3))
+    pick = loci3[np.arange(B)[:, None], rng.integers(0, 3, (B, 10))]
+    read_kw = kw[pick, rng.integers(0, RECRUIT_KEYWORDS, (B, 10))]
+    shifts = 2 * np.arange(14, -1, -1)
+    bases = (read_kw[..., None] >> shifts) & 3            # (B, 10, 15)
+    seqs = np.zeros((B, 256), dtype=np.int8)
+    seqs[:, :150] = bases.reshape(B, 150)
+    lengths = np.full(B, 150, dtype=np.int32)
+
+    def args(device):
+        return (torch.as_tensor(codes, device=device),
+                torch.as_tensor(locus, device=device),
+                torch.as_tensor(seqs, device=device),
+                torch.as_tensor(lengths, device=device),
+                15, RECRUIT_LOCI, max_dup, 16)
+
+    on_dev, on_cpu = args(dev), args(torch.device("cpu"))
+    got = [t.cpu() for t in kf.count_topk(*on_dev)]
+    want = kf.count_topk(*on_cpu)
+    check(all(torch.equal(g, w) for g, w in zip(got, want)),
+          "recruitment top-M counts differ between cuda and cpu")
+    check(int(got[0][:, 0].min()) >= 4, "recruitment cell found no hits")
+    ms = time_ms(lambda: kf.count_topk(*on_dev))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kf.count_topk(*on_dev)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    plane = B * RECRUIT_LOCI * 4
+    log(f"recruitment top-M: {B} reads x {RECRUIT_LOCI} loci "
+        f"({len(codes)} keywords) equal to the host; {ms:.3f} ms "
+        f"({B / ms * 1e3:.0f} reads/s), peak {peak / 2**20:.1f} MiB for a "
+        f"{plane / 2**20:.1f} MiB int32 count plane")
+
+
+def run_cli(argv) -> tuple[str, float]:
+    from advntr_tpu_torch import cli
+    t0 = time.perf_counter()
+    cli.main(argv)
+    if "cuda" in argv:
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    with open(argv[argv.index("-o") + 1]) as fh:
+        return fh.read(), dt
+
+
+def stage_totals() -> str:
+    from advntr_tpu.utils.profiler import STAGE_COUNTS, STAGE_TOTALS
+    return ", ".join(f"{k} {v:.3f} s over {STAGE_COUNTS[k]} calls"
+                     for k, v in sorted(STAGE_TOTALS.items(),
+                                        key=lambda kv: -kv[1]))
+
+
+def reset_stages() -> None:
+    from advntr_tpu.utils.profiler import STAGE_COUNTS, STAGE_TOTALS
+    STAGE_TOTALS.clear()
+    STAGE_COUNTS.clear()
+
+
+def profiled(fn):
+    """Run ``fn`` under torch.profiler; print its wall time, the device
+    time per kernel and the device's idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    reset_stages()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    per_kernel = {}
+    for evt in prof.key_averages():
+        # a host op's device time repeats that of the kernels it launched
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = getattr(evt, "self_cuda_time_total", 0)
+        if us > 0:
+            per_kernel[evt.key] = (us, evt.count)
+    busy = sum(us for us, _ in per_kernel.values()) / 1e6
+    log(f"profile: wall {wall:.3f} s, device busy {busy * 1e3:.3f} ms, "
+        f"idle share {1 - busy / wall:.4f}")
+    for key, (us, n) in sorted(per_kernel.items(), key=lambda kv: -kv[1][0]):
+        log(f"profile:   {us / 1e3:.3f} ms over {n} launches: {key[:90]}")
+    log(f"profile: stages: {stage_totals()}")
+    return out
+
+
+def phase_end_to_end(kernels, profile: bool):
+    from advntr_tpu_torch.synthetic import write_cstb_sample, write_panel
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        panel_db, panel_bam, truth = write_panel(
+            tmp, n_loci=PANEL_LOCI, read_length=150, coverage=30)
+        cstb_db, cstb_bam = write_cstb_sample(tmp)
+
+        def argv(db, bam, wd, device):
+            os.makedirs(wd, exist_ok=True)
+            return ["genotype", "-a", bam, "-m", db, "--working_directory",
+                    wd, "--disable_logging", "-o",
+                    os.path.join(wd, "out.txt"), "--device", device]
+
+        jobs = {"panel": (panel_db, panel_bam), "cstb": (cstb_db, cstb_bam)}
+        # the main path: every kernel count starts at 0 right here
+        kernels.reset_launches()
+        gpu, secs = {}, {}
+        for name, (db, bam) in jobs.items():
+            reset_stages()
+            gpu[name], secs[name] = run_cli(
+                argv(db, bam, os.path.join(tmp, name + "_cuda"), "cuda"))
+            if name == "panel":
+                log(f"panel cold (cuda) stages: {stage_totals()}")
+        launches = dict(kernels.LAUNCHES)
+        log(f"end to end (cuda): launches {launches}")
+        for k, n in launches.items():
+            check(n > 0, f"kernel {k} never launched on the main path")
+        # warm rerun on the bank the first run wrote (no host model build)
+        wd = os.path.join(tmp, "panel_cuda")
+        warm_argv = argv(panel_db, panel_bam, wd, "cuda")
+
+        def warm_run():
+            os.remove(os.path.join(wd, "results_checkpoint_panel.bam.jsonl"))
+            return run_cli(warm_argv)
+
+        warm, warm_s = warm_run()
+        check(warm == gpu["panel"], "warm panel rerun differs")
+        if profile:
+            check(profiled(warm_run)[0] == gpu["panel"],
+                  "profiled warm panel rerun differs")
+        cpu = {name: run_cli(argv(db, bam, os.path.join(tmp, name + "_cpu"),
+                                  "cpu"))[0]
+               for name, (db, bam) in jobs.items()}
+        for name in jobs:
+            check(gpu[name] == cpu[name],
+                  f"{name}: --device cuda output differs from --device cpu")
+        check(gpu["cstb"].split() == ["301645", "2/5"],
+              f"CSTB called {gpu['cstb'].split()}, expected 2/5")
+        lines = gpu["panel"].split()
+        calls = dict(zip(lines[0::2], lines[1::2]))
+        right = sum(calls.get(str(v)) == "%d/%d" % ab
+                    for v, ab in truth.items())
+        n = len(truth)
+        log(f"end to end: CSTB 2/5; panel {right}/{n} loci equal to the "
+            f"simulated genotype; cuda == cpu outputs")
+        log(f"panel: {n} loci in {secs['panel']:.2f} s cold "
+            f"({n / secs['panel']:.3f} loci/s, host model builds included), "
+            f"{warm_s:.2f} s warm from the bank ({n / warm_s:.3f} loci/s)")
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def main() -> None:
+    profile = "--profile" in sys.argv[1:]
+    smi = phase_device()
+    dev = torch.device("cuda")
+    from advntr_tpu_torch.ops import _kernels
+    phase_build(_kernels)
+    m, seqs, lens, (b1_err, b2_err, rs_err) = phase_kernels(dev)
+    ms = phase_timing(m, seqs, lens)
+    del seqs, lens
+    phase_recruitment(dev)
+    launches = phase_end_to_end(_kernels, profile)
+    kernels = [
+        {"name": "viterbi_forward", "route": "cuda",
+         "source": "advntr_tpu_torch/csrc/viterbi_forward.cu",
+         "replaces": "advntr_tpu/ops/pallas_viterbi.py:554",
+         "launches": launches["forward"], "max_abs_err": b1_err,
+         "ms": ms["B1"][0], "plain_ms": ms["B1"][1]},
+        {"name": "viterbi_backward", "route": "cuda",
+         "source": "advntr_tpu_torch/csrc/viterbi_backward.cu",
+         "replaces": "advntr_tpu/ops/pallas_viterbi.py:766",
+         "launches": launches["backward"], "max_abs_err": b2_err,
+         "ms": ms["B2"][0], "plain_ms": ms["B2"][1]},
+    ]
+    print(smi)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

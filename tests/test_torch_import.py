@@ -1,0 +1,87 @@
+"""The port imports and genotypes with jax absent (the GPU host has no
+jax), never names jax in its sources, and rejects what it does not run
+yet with the ROADMAP item."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import advntr_tpu_torch
+from advntr_tpu_torch import cli
+from advntr_tpu_torch.device import resolve_device
+
+# the suite runs test files in parallel worker processes: one torch thread
+# each keeps them from oversubscribing the cores
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parent.parent
+PKG = Path(advntr_tpu_torch.__file__).parent
+
+NO_JAX_RUN = r"""
+import importlib, os, pkgutil, sys, tempfile
+sys.modules["jax"] = None          # any import of jax now fails
+import torch
+torch.set_num_threads(1)
+import advntr_tpu_torch
+for mod in pkgutil.walk_packages(advntr_tpu_torch.__path__,
+                                 "advntr_tpu_torch."):
+    importlib.import_module(mod.name)
+from advntr_tpu_torch import cli
+from advntr_tpu_torch.synthetic import write_cstb_sample
+for argv in (["--help"], ["genotype", "--help"]):
+    try:
+        cli.main(argv)
+    except SystemExit as e:
+        assert e.code == 0, e.code
+d = tempfile.mkdtemp()
+db, bam = write_cstb_sample(d, coverage=20)
+out = os.path.join(d, "out.txt")
+cli.main(["genotype", "-a", bam, "-m", db, "--working_directory", d,
+          "--disable_logging", "-o", out, "--device", "cpu"])
+print(open(out).read().split())
+assert not [m for m in sys.modules if m.startswith("jax.")]
+"""
+
+
+def test_imports_and_genotypes_without_jax(tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(REPO), HOME=str(tmp_path),
+               TMPDIR=str(tmp_path), OMP_NUM_THREADS="1")
+    res = subprocess.run([sys.executable, "-c", NO_JAX_RUN], cwd=tmp_path,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "genotype" in res.stdout and "--device" in res.stdout
+    assert res.stdout.strip().splitlines()[-1] == "['301645', '2/5']"
+
+
+def test_sources_never_import_jax():
+    sources = [p for p in PKG.rglob("*.py")
+               if "build" not in p.relative_to(PKG).parts]
+    assert len(sources) > 10
+    offenders = [str(p) for p in sources
+                 if "import jax" in p.read_text()
+                 or "from jax" in p.read_text()]
+    assert offenders == []
+
+
+def test_cuda_device_is_explicit():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError):
+        resolve_device("mps")
+
+
+@pytest.mark.parametrize("flag,item", [("-p", "A9"), ("-fs", "A10"),
+                                       ("-u", "A10"), ("--em", "A10")])
+def test_unported_flags_name_their_roadmap_item(flag, item, tmp_path):
+    with pytest.raises(SystemExit) as exc:
+        cli.main(["genotype", "-a", str(tmp_path / "x.bam"), flag,
+                  "--device", "cpu"])
+    assert item in str(exc.value.code)

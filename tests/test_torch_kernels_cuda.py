@@ -1,0 +1,117 @@
+"""The port's CUDA kernels (B1 forward, B2 backward walk) against their
+plain PyTorch twins on the card, at small sizes.
+
+Needs a CUDA device and nvcc; skips elsewhere.  On the GPU host (no jax
+there) run it without the suite's jax conftest:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
+"""
+
+import random
+
+import numpy as np
+import pytest
+import torch
+
+from advntr_tpu import dna
+from advntr_tpu_torch.ops import _kernels
+from advntr_tpu_torch.ops import viterbi_fused as vf
+from advntr_tpu_torch.ops.struct_model import TorchStructModel
+from advntr_tpu_torch.synthetic import locus_model, rand_seq
+
+pytestmark = pytest.mark.cuda
+
+CASES = [
+    (["CAGCAG", "CAGCAG", "CAACAG"], "ACGTTGCA", "TTACGGAT", 3),
+    (["CGCGGGGCGGGG"] * 3, rand_seq(3, 40), rand_seq(4, 40), 5),
+]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _batch(case, n_reads, seed, min_len=1):
+    units, left, right, copies = case
+    rng = random.Random(seed)
+    reads = []
+    for _ in range(n_reads):
+        hap = left + units[0] * rng.randint(1, copies + 1) + right
+        a = rng.randint(0, len(hap) - 1)
+        n = rng.randint(min_len, len(hap) - a)
+        reads.append(hap[a:a + n])
+    rows = [dna.encode(r) for r in reads]
+    batch, lengths = dna.pad_batch(rows, multiple=8)
+    return torch.as_tensor(batch), torch.as_tensor(lengths)
+
+
+@pytest.mark.parametrize("origin32", [False, True])
+@pytest.mark.parametrize("n_reads", [5, 64])
+@pytest.mark.parametrize("case", CASES)
+def test_forward_kernel_matches_twin(cuda, case, n_reads, origin32):
+    art, sm = locus_model(*case)
+    m = TorchStructModel.from_payload(art, sm, cuda)
+    seqs, lengths = _batch(case, n_reads, seed=n_reads)
+    seqs, lengths = seqs.to(cuda), lengths.to(cuda)
+    n0 = _kernels.LAUNCHES["forward"]
+    got = vf.fused_forward(m, seqs, lengths, origin32)
+    want = vf.fused_forward_reference(m, seqs, lengths, origin32)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["forward"] == n0 + 1
+    for g, w, name in zip(got, want, ("best", "bstate", "oMI", "oXH")):
+        assert g.dtype == w.dtype, name
+        assert torch.equal(g, w), name
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_backward_kernel_matches_twin(cuda, case):
+    art, sm = locus_model(*case)
+    m = TorchStructModel.from_payload(art, sm, cuda)
+    seqs, lengths = _batch(case, 40, seed=7)
+    lengths[:3] = 1                      # length-1 rows
+    seqs, lengths = seqs.to(cuda), lengths.to(cuda)
+    best, bstate, oMI, oXH = vf.fused_forward_reference(m, seqs, lengths)
+    n0 = _kernels.LAUNCHES["backward"]
+    path, stats = vf.backward_stats(m, lengths, bstate, oMI, oXH)
+    path_w, stats_w = vf.backward_stats_reference(m, lengths, bstate, oMI,
+                                                  oXH)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["backward"] == n0 + 1
+    assert torch.equal(path, path_w)
+    assert torch.equal(stats, stats_w)
+
+
+def test_read_stats_on_card_equal_cpu(cuda):
+    case = CASES[1]
+    art, sm = locus_model(*case)
+    seqs, lengths = _batch(case, 33, seed=11)
+    cpu = vf.viterbi_stats(TorchStructModel.from_payload(art, sm, "cpu"),
+                           seqs, lengths, return_path=True)
+    gpu = vf.viterbi_stats(TorchStructModel.from_payload(art, sm, cuda),
+                           seqs.to(cuda), lengths.to(cuda), return_path=True)
+    for k, v in cpu.items():
+        np.testing.assert_array_equal(gpu[k].cpu().numpy(), v.numpy(),
+                                      err_msg=k)
+
+
+@pytest.mark.parametrize("units,copies", [(["ACG"] * 3, 40),
+                                          (["CAGTT"] * 3, 7)])
+def test_kernels_at_odd_shapes(cuda, units, copies):
+    """P not a multiple of 32 (idle threads in the last warp) and more
+    than 32 units (the unit chain and its argmax span several warps)."""
+    left, right = rand_seq(5, 20), rand_seq(6, 21)
+    art, sm = locus_model(units, left, right, copies, pos_bucket=1)
+    m = TorchStructModel.from_payload(art, sm, cuda)
+    assert m.P % 32 != 0
+    seqs, lengths = _batch((units, left, right, copies), 37, seed=copies)
+    seqs, lengths = seqs.to(cuda), lengths.to(cuda)
+    got = vf.fused_forward(m, seqs, lengths)
+    want = vf.fused_forward_reference(m, seqs, lengths)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    path, stats = vf.backward_stats(m, lengths, *want[1:])
+    path_w, stats_w = vf.backward_stats_reference(m, lengths, *want[1:])
+    assert torch.equal(path, path_w) and torch.equal(stats, stats_w)

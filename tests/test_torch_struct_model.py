@@ -1,0 +1,142 @@
+"""The port's plain model tables against the reference's Pallas packing
+(PallasStructModel.from_struct) of the same padded structured model."""
+
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import advntr_tpu.ops.pallas_viterbi as pv
+from advntr_tpu_torch.ops import struct_model as smod
+from advntr_tpu_torch.ops.struct_model import TorchStructModel
+from advntr_tpu_torch.synthetic import locus_model, padded_structured
+
+# the suite runs test files in parallel worker processes: one torch thread
+# each keeps them from oversubscribing the cores
+torch.set_num_threads(1)
+
+CASES = [
+    (["CAGCAG", "CAGCAG", "CAACAG"], "ACGTTGCA", "TTACGGAT", 3),
+    (["CGCGGGGCGGGG"] * 3, "ACGTACTGACGATCGATT", "TTACGGATGCAGTACGTA", 5),
+    (["ACGTAC"] * 3, "GATTACAGATTACAGATT", "CCATGGCCATGG", 9),
+]
+
+
+def _pair(case):
+    art, sm = locus_model(*case)
+    return art, sm, pv.PallasStructModel.from_struct(sm, art), \
+        TorchStructModel.from_payload(art, sm, "cpu")
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_window_tables_match_reference(case):
+    art, sm, pm, tm = _pair(case)
+    P = tm.P
+    np.testing.assert_array_equal(tm.Wd.numpy(), np.asarray(pm.Wd2)[:, :P])
+    np.testing.assert_array_equal(np.asarray(pm.Wd2)[:, P:], 0.0)
+    np.testing.assert_array_equal(tm.Wu.numpy(), np.asarray(pm.Wu))
+    assert tm.r_unit == float(np.asarray(pm.r_unit)[0, 0])
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_position_and_block_rows_match_reference(case):
+    art, sm, pm, tm = _pair(case)
+    P, nb = tm.P, tm.nb
+    PM2, PB2 = np.asarray(pm.PM2), np.asarray(pm.PB2)
+    pairs = {pv.W2_A: ("a_mm", "mi"), pv.W2_B: ("a_im", "ii"),
+             pv.W2_C: ("a_dm", "di"), pv.W2_D: ("md", "idw"),
+             pv.W2_X: ("xm", "xi"), pv.W2_LE: ("le_M", "le_I"),
+             pv.W2_START: ("M_start", "I_start")}
+    for r, (m_half, i_half) in pairs.items():
+        np.testing.assert_array_equal(tm.row(m_half).numpy(), PM2[r, :P])
+        np.testing.assert_array_equal(tm.row(i_half).numpy(), PM2[r, P:])
+    np.testing.assert_array_equal(tm.row("xd").numpy(), PM2[pv.W2_XD, :P])
+    np.testing.assert_array_equal(tm.blk_idx.numpy() + 2 * P,
+                                  PM2[pv.W2_BLKID, :P])
+    np.testing.assert_array_equal(tm.row("i0_i").numpy(), PB2[pv.B2_IH, :nb])
+    np.testing.assert_array_equal(tm.row("hub_i0").numpy(),
+                                  PB2[pv.B2_IH, nb:])
+    np.testing.assert_array_equal(tm.row("I0_start").numpy(),
+                                  PB2[pv.B2_START, :nb])
+    np.testing.assert_array_equal(tm.row("le_I0").numpy(),
+                                  PB2[pv.B2_LE, :nb])
+    # the ones-row folds of the expansion matrices carry the entry weights
+    W_hio = np.asarray(pm.W_hio)
+    np.testing.assert_array_equal(tm.row("ent_m").numpy(), W_hio[-1, :P])
+    np.testing.assert_array_equal(tm.row("i0_m").numpy(), W_hio[-1, P:])
+    np.testing.assert_array_equal(tm.row("i0_d").numpy(),
+                                  np.asarray(pm.W_i0e)[-1])
+    np.testing.assert_array_equal(tm.row("hub_d").numpy(),
+                                  np.asarray(pm.W_hube)[-1])
+    # the one-hot block rows are blk_idx
+    onehot = np.asarray(pm.W_i0e)[:nb]
+    np.testing.assert_array_equal(onehot.argmax(axis=0), tm.blk_idx.numpy())
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_emissions_and_extraction_match_reference(case):
+    art, sm, pm, tm = _pair(case)
+    P, nb, C = tm.P, tm.nb, tm.C
+    EMB = np.asarray(pm.EMB)
+    np.testing.assert_array_equal(tm.eM.numpy().T, EMB[:, :P])
+    np.testing.assert_array_equal(tm.eI.numpy().T, EMB[:, P:2 * P])
+    np.testing.assert_array_equal(tm.eI0.numpy().T, EMB[:, 2 * P:2 * P + nb])
+    # the match-bit block marks each M position's expected base
+    _, mbit = pv._origin_params(P, nb)
+    bits = EMB[:, 2 * P + nb:3 * P + nb] - 1.5
+    for base in range(4):
+        np.testing.assert_array_equal(bits[base] == mbit,
+                                      tm.exp_base.numpy() == base)
+    ulsuf = np.asarray(pm.ulsuf)
+    np.testing.assert_array_equal(ulsuf[:, :C].argmax(axis=0),
+                                  tm.unit_last.numpy())
+    assert ulsuf[:, C].argmax() == tm.suffix_last
+    np.testing.assert_array_equal(tm.struct_to_art.numpy(),
+                                  np.asarray(pm.struct_to_art))
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_region_and_unit_match_decoded_pack(case):
+    art, sm, pm, tm = _pair(case)
+    P, nb = tm.P, tm.nb
+    pack = np.concatenate([np.asarray(pm.packMI)[0],
+                           np.asarray(pm.packB)[0, :nb]]).astype(np.int64)
+    np.testing.assert_array_equal(tm.region.numpy(), pack >> 12)
+    np.testing.assert_array_equal(tm.unit.numpy(), (pack & 0xFFF) - 1)
+
+
+@pytest.mark.parametrize("P,nb", [(64, 10), (512, 18), (4064, 34),
+                                  (4000, 96), (8192, 18)])
+def test_origin_dtype_rule_matches_reference(P, nb):
+    dtype, mbit = smod.origin_params(P, nb)
+    ref_dtype, ref_mbit = pv._origin_params(P, nb)
+    assert mbit == ref_mbit
+    assert dtype == {np.dtype("int16"): torch.int16,
+                     np.dtype("int32"): torch.int32}[np.dtype(ref_dtype)]
+    assert smod.origin_params(P, nb, force32=True) == (torch.int32,
+                                                       smod.MBIT32)
+
+
+def test_production_locus_shape():
+    """The production CSTB cell: n_states 927, P 512, C 16, nb 18, int16
+    origin planes."""
+    from bench import build_locus
+    graph, art, *_ = build_locus(150)
+    sm = padded_structured(graph, art, pos_bucket=128)
+    tm = TorchStructModel.from_payload(art, sm, "cpu")
+    assert (art.n_states, tm.P, tm.C, tm.nb) == (927, 512, 16, 18)
+    assert smod.origin_params(tm.P, tm.nb)[0] == torch.int16
+
+
+def test_kernel_row_order_matches_tables():
+    """csrc/viterbi_forward.cu indexes the float tables by enum; its row
+    order must be POS_ROWS and BLK_ROWS."""
+    src = (Path(smod.__file__).parent.parent / "csrc" /
+           "viterbi_forward.cu").read_text()
+    enums = re.findall(r"enum \{([^}]*)\}", src)
+    pos = [n.strip() for n in enums[0].split(",") if n.strip()]
+    blk = [n.strip() for n in enums[1].split(",") if n.strip()]
+    assert pos == ["R_" + n.upper() for n in smod.POS_ROWS]
+    assert blk == ["B_" + n.upper() for n in smod.BLK_ROWS]

@@ -1,0 +1,219 @@
+"""The port's fused Viterbi pipeline (plain PyTorch twins on the CPU)
+against the JAX reference: the Pallas kernel pair in interpret mode and
+the structured XLA kernel.
+
+Contract (tests/test_pallas_viterbi.py:80-134): analytics exactly equal,
+logp within rtol 1e-4 / atol 1e-2 (the struct kernel sums in another
+order), decoded paths rescore in f64 to the optimum.  Against the Pallas
+pair the twins follow the same float32 steps, so the whole result dict,
+the path included, is expected bit-identical."""
+
+import random
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import advntr_tpu.ops.pallas_viterbi as pv
+from advntr_tpu import dna
+from advntr_tpu.engine import device_analytics as jda
+from advntr_tpu.ops.viterbi_struct import StructDeviceModel
+from advntr_tpu_torch.engine import device_analytics as tda
+from advntr_tpu_torch.ops import viterbi_fused as vf
+from advntr_tpu_torch.ops.struct_model import TorchStructModel
+from advntr_tpu_torch.synthetic import locus_model, rescore
+
+# the suite runs test files in parallel worker processes: one torch thread
+# each keeps them from oversubscribing the cores
+torch.set_num_threads(1)
+
+CASES = [
+    (["CAGCAG", "CAGCAG", "CAACAG"], "ACGTTGCA", "TTACGGAT", 3),
+    (["CGCGGGGCGGGG"] * 3, "ACGTACTGACGATCGATT", "TTACGGATGCAGTACGTA", 5),
+]
+READS = [
+    "ACGTTGCACAGCAGCAGCAGCAACAGTTACGGAT",
+    "TTGCACAGCAGCAGCAGTTACG",
+    "CAGCAGCAGCAGCAACAG",
+    "ACGTTGCACAGCTGCAGCAGTTACGGAT",
+    "ACGTTGCACAGAGCAGCAGTTACGGAT",
+    "ACGTTGCACAGGCAGCAGCAGTTACGGAT",
+    "ACGTACTGACGATCGATTCGCGGGGCGGGGCGCGGGGCGGGGTTACGGATGCAGTACGTA",
+    "GGGGCGGGGCGCGGGGCG",
+    "ACGT",
+    "TTTTTTTTTTTTTTTTTT",
+]
+LOGP_TOL = dict(rtol=1e-4, atol=1e-2)
+
+
+def _models(case):
+    art, sm = locus_model(*case)
+    return (art, sm, pv.PallasStructModel.from_struct(sm, art),
+            TorchStructModel.from_payload(art, sm, "cpu"))
+
+
+def _meta(art):
+    return tuple(jnp.asarray(x) for x in
+                 (art.kind, art.region, art.exp_base, art.unit))
+
+
+def _batch(reads, multiple=8):
+    rows = [dna.encode(r) for r in reads]
+    batch, lengths = dna.pad_batch(rows, multiple=multiple)
+    return rows, batch, lengths
+
+
+def _random_reads(case, n, seed):
+    units, left, right, copies = case
+    rng = random.Random(seed)
+    reads = []
+    for _ in range(n):
+        hap = left + units[0] * rng.randint(1, copies + 2) + right
+        a = rng.randint(0, max(0, len(hap) - 12))
+        reads.append(hap[a:a + rng.randint(10, len(hap) - a)])
+    return reads
+
+
+def _check_against_jax(case, reads, origin32=False):
+    art, sm, pm, tm = _models(case)
+    rows, batch, lengths = _batch(reads)
+    ref_pallas = jda.read_stats_pallas(
+        pm.flat(), _meta(art), jnp.asarray(batch), jnp.asarray(lengths),
+        return_path=True, interpret=True)
+    ref_struct = jda.read_stats_struct(
+        StructDeviceModel.from_struct(sm, art).flat(), _meta(art),
+        jnp.asarray(batch), jnp.asarray(lengths), sm.suffix_last)
+    out = tda.read_stats(tm, torch.as_tensor(batch),
+                         torch.as_tensor(lengths), return_path=True,
+                         origin32=origin32)
+    out = {k: v.numpy() for k, v in out.items()}
+    # bit-identical to the Pallas pair
+    for k, v in ref_pallas.items():
+        np.testing.assert_array_equal(out[k], np.asarray(v), err_msg=k)
+    # the struct kernel: the repository's conformance contract
+    l1 = np.asarray(ref_struct["logp"])
+    np.testing.assert_allclose(out["logp"], l1, **LOGP_TOL)
+    keep = l1 > -1e20
+    for k in vf.STAT_KEYS:
+        np.testing.assert_array_equal(out[k][keep],
+                                      np.asarray(ref_struct[k])[keep],
+                                      err_msg=k)
+    for b, codes in enumerate(rows):
+        if keep[b]:
+            s = rescore(art, out["path"][b][: len(codes)], codes)
+            assert s == pytest.approx(float(l1[b]), rel=1e-4, abs=1e-2)
+    return out
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_read_stats_matches_jax_multi_length_batch(case):
+    """The Pallas test reads, 54 random multi-length reads and two
+    length-1 rows in one 66-read batch."""
+    reads = READS + _random_reads(case, 54, seed=99) + ["A", "G"]
+    _check_against_jax(case, reads)
+
+
+def test_read_stats_matches_jax_batch_under_8():
+    reads = ["A", "CAGCAGCAG", "G", "ACGTTGCACAGCAGTTACGGAT", "T"]
+    out = _check_against_jax(CASES[0], reads)
+    assert out["logp"].shape == (5,)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_walk_statistics_match_path_oracle(case):
+    """The in-walk statistics equal the plain analytics_from_path over the
+    decoded path (the port's own oracle for B2)."""
+    art, sm, pm, tm = _models(case)
+    reads = READS + _random_reads(case, 30, seed=17)
+    _, batch, lengths = _batch(reads)
+    seqs, lens = torch.as_tensor(batch), torch.as_tensor(lengths)
+    out = tda.read_stats(tm, seqs, lens, return_path=True)
+    meta = tuple(torch.as_tensor(x) for x in
+                 (art.kind, art.region, art.exp_base, art.unit))
+    oracle = tda.analytics_from_path(meta, out["logp"], out["path"], seqs,
+                                     lens)
+    for k in vf.STAT_KEYS:
+        np.testing.assert_array_equal(out[k].numpy(), oracle[k].numpy(),
+                                      err_msg=k)
+
+
+def test_grouped_read_stats_equals_per_locus():
+    art, sm, pm, tm = _models(CASES[0])
+    _, batch, lengths = _batch(READS)
+    seqs = torch.as_tensor(np.stack([batch, batch[::-1].copy()]))
+    lens = torch.as_tensor(np.stack([lengths, lengths[::-1].copy()]))
+    grouped = tda.read_stats_grouped([tm, tm], seqs, lens)
+    for g in range(2):
+        one = tda.read_stats(tm, seqs[g], lens[g])
+        for k, v in one.items():
+            assert torch.equal(grouped[k][g], v), k
+
+
+def test_viterbi_batch_contract():
+    """viterbi_batch returns the stats pipeline's logp and path, and the
+    end state is the path's last valid column (artifact space)."""
+    art, sm, pm, tm = _models(CASES[1])
+    rows, batch, lengths = _batch(READS)
+    seqs, lens = torch.as_tensor(batch), torch.as_tensor(lengths)
+    best, end_state, path = vf.viterbi_batch(tm, seqs, lens)
+    stats = tda.read_stats(tm, seqs, lens, return_path=True)
+    assert torch.equal(best, stats["logp"])
+    assert torch.equal(path, stats["path"])
+    last = path[torch.arange(len(rows)), lens.long() - 1]
+    assert torch.equal(end_state, last)
+
+
+def test_cuda_tensor_never_reaches_twin(monkeypatch):
+    """A non-CPU tensor goes to the kernel wrapper, never to the twin."""
+    from advntr_tpu_torch.ops import _kernels
+    art, sm, pm, tm = _models(CASES[0])
+    calls = []
+    monkeypatch.setattr(_kernels, "forward",
+                        lambda *a, **k: calls.append("kernel"))
+    monkeypatch.setattr(vf, "fused_forward_reference",
+                        lambda *a, **k: calls.append("twin"))
+
+    class FakeCuda:
+        is_cuda = True
+        device = tm.device
+        shape = (1, 8)
+
+        def dim(self):
+            return 2
+
+    lengths = torch.ones(1)
+    vf.fused_forward(tm, FakeCuda(), lengths)
+    assert calls == ["kernel"]
+
+
+def test_kernel_wrappers_reject_mismatched_inputs():
+    """The wrappers check shapes and devices before any pointer reaches
+    the kernels (and before nvcc is needed)."""
+    from advntr_tpu_torch.ops import _kernels
+    art, sm, pm, tm = _models(CASES[0])
+    seqs = torch.zeros(4, 16, dtype=torch.int8)
+    with pytest.raises(ValueError, match="lengths"):
+        _kernels.forward(tm, seqs, torch.ones(3, dtype=torch.int32))
+    planes = torch.zeros(16, 4, 2 * tm.P, dtype=torch.int16)
+    hub = torch.zeros(16, 4, 2 * tm.nb, dtype=torch.int16)
+    ones = torch.ones(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="do not fit"):
+        _kernels.backward(tm, ones, ones, planes[..., 2:], hub)
+    with pytest.raises(ValueError, match="int16 or both int32"):
+        _kernels.backward(tm, ones, ones, planes, hub.to(torch.int32))
+
+
+@pytest.mark.parametrize("grouped", [False, True])
+def test_reads_past_the_column_limit_raise(grouped):
+    """One limit holds for the per-locus and the grouped paths: reads
+    longer than MAX_COLUMNS need the checkpointed traceback."""
+    art, sm, pm, tm = _models(CASES[0])
+    L = vf.MAX_COLUMNS + 1
+    seqs = torch.zeros(2, L, dtype=torch.int8)
+    lengths = torch.full((2,), L, dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="A9"):
+        if grouped:
+            tda.read_stats_grouped([tm], seqs[None], lengths[None])
+        else:
+            tda.read_stats(tm, seqs, lengths)
