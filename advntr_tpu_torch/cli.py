@@ -14,7 +14,7 @@ import logging
 import os
 import sys
 
-from advntr_tpu.config import Config
+from advntr_tpu_torch.config import Config
 from advntr_tpu_torch import __version__
 from advntr_tpu_torch.device import DEVICES, resolve_device
 
@@ -92,7 +92,7 @@ def _err(msg: str):
 
 
 def genotype(args) -> None:
-    from advntr_tpu.models.db import load_unique_vntrs_data
+    from advntr_tpu_torch.models.db import load_unique_vntrs_data
     from advntr_tpu_torch.engine.analyzer import GenomeAnalyzer
 
     for flag, why in NOT_PORTED.items():
@@ -146,7 +146,7 @@ def genotype(args) -> None:
 
 
 def view_model(args) -> None:
-    from advntr_tpu.models.db import load_unique_vntrs_data
+    from advntr_tpu_torch.models.db import load_unique_vntrs_data
     if args.pattern and set(args.pattern.upper()) - set("ACGT"):
         _err("Pattern should only contain A, C, G, T")
     genes = [g.upper() for g in args.gene.split(",") if g]

@@ -15,7 +15,13 @@
 // twelve statistics in registers, and enough reads in flight (B=4096 is
 // 4096 independent chains) to hide the load latency.  The plane rows of
 // neighbouring reads are neighbours in memory, so the loads of one warp
-// fall in a few 2P-wide rows.
+// fall in a few 2P-wide rows.  A group of G same-shape loci is one launch,
+// grid (ceil(B / 128), G), each locus with its own planes and state tables.
+//
+// Its bound.  The bytes are one origin code read and one path entry
+// written per read and column plus the statistics, about 4 MB at B=4096,
+// L=160: a microsecond at 3.35 TB/s.  The chain sets the time instead: L
+// dependent loads a read, each a trip to L2 or device memory.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -25,18 +31,18 @@ namespace {
 constexpr int BIG = 1 << 30;
 constexpr int MIN_BP_IN_REPEAT = 3;
 constexpr int N_STATS = 16;
-// region codes of advntr_tpu/models/graph.py
+// region codes of advntr_tpu_torch/models/graph.py
 constexpr int R_SUFFIX = 0, R_REPEAT = 1, R_PREFIX = 2;
 
 struct BwdArgs {
-  const int32_t* lengths;   // (B,)
-  const int32_t* bstate;    // (B,)
-  const void* oMI;          // (L, B, 2P)
-  const void* oXH;          // (L, B, 2nb)
-  const int32_t* region;    // (n_struct,)
-  const int32_t* unit;      // (n_struct,)
-  int32_t* path;            // (B, L)
-  int32_t* stats;           // (B, N_STATS)
+  const int32_t* lengths;   // (G, B)
+  const int32_t* bstate;    // (G, B)
+  const void* oMI;          // (G, L, B, 2P)
+  const void* oXH;          // (G, L, B, 2nb)
+  const int32_t* region;    // (G, n_struct)
+  const int32_t* unit;      // (G, n_struct)
+  int32_t* path;            // (G, B, L)
+  int32_t* stats;           // (G, B, N_STATS)
   int B, L, P, nb, n_struct, mbit;
 };
 
@@ -44,18 +50,23 @@ template <typename OT>
 __global__ void viterbi_backward_kernel(const BwdArgs a) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= a.B) return;
+  const int g = blockIdx.y;
   const int P2 = 2 * a.P, nb2 = 2 * a.nb, L = a.L;
   const int code_mask = a.mbit - 1;
-  const OT* oMI = (const OT*)a.oMI;
-  const OT* oXH = (const OT*)a.oXH;
-  const int len = a.lengths[b];
-  int cur = a.bstate[b];
+  const OT* oMI = (const OT*)a.oMI + (size_t)g * L * a.B * P2;
+  const OT* oXH = (const OT*)a.oXH + (size_t)g * L * a.B * nb2;
+  const int32_t* region_t = a.region + (size_t)g * a.n_struct;
+  const int32_t* unit_t = a.unit + (size_t)g * a.n_struct;
+  const size_t read = (size_t)g * a.B + b;
+  int32_t* path = a.path + read * L;
+  const int len = a.lengths[read];
+  int cur = a.bstate[read];
   int rnext = 0, unext = 0;
   int nm = 0, repbp = 0, lbp = 0, rbp = 0, lmt = 0, rmt = 0;
   int starts = 0, ends = 0, fs = BIG, ls = -BIG, fe = BIG, le = -BIG;
 
   for (int t = L - 1; t >= 0; --t) {
-    a.path[(size_t)b * L + t] = cur;
+    path[t] = cur;
     const size_t row = (size_t)t * a.B + b;
     const OT* rMI = oMI + row * P2;
     const OT* rXH = oXH + row * nb2;
@@ -68,8 +79,8 @@ __global__ void viterbi_backward_kernel(const BwdArgs a) {
     if (prev >= P2 + a.nb)                  // hub sentinel: resolve it
       prev = (prev - P2 < nb2 ? (int)rXH[prev - P2] : 0) - 1;
     const bool in_meta = cur >= 0 && cur < a.n_struct;
-    const int region = in_meta ? a.region[cur] : 0;
-    const int unit = in_meta ? a.unit[cur] : -1;
+    const int region = in_meta ? region_t[cur] : 0;
+    const int unit = in_meta ? unit_t[cur] : -1;
 
     const bool valid = t < len;
     const bool is_m = cur < a.P && valid;
@@ -120,7 +131,7 @@ __global__ void viterbi_backward_kernel(const BwdArgs a) {
     if (t <= len - 1 && t >= 1) cur = prev;
   }
 
-  int32_t* s = a.stats + (size_t)b * N_STATS;
+  int32_t* s = a.stats + read * N_STATS;
   s[0] = nm; s[1] = repbp; s[2] = lbp; s[3] = rbp; s[4] = lmt; s[5] = rmt;
   s[6] = starts; s[7] = ends; s[8] = fs; s[9] = ls; s[10] = fe; s[11] = le;
   for (int k = 12; k < N_STATS; ++k) s[k] = 0;
@@ -130,11 +141,12 @@ __global__ void viterbi_backward_kernel(const BwdArgs a) {
 
 extern "C" {
 
-// Launches B2 on `stream`; returns cudaGetLastError() of the launch.
+// Launches B2 for G loci on `stream`; returns cudaGetLastError() of the
+// launch.
 int advntr_viterbi_backward(
     const void* lengths, const void* bstate, const void* oMI, const void* oXH,
-    const void* region, const void* unit, void* path, void* stats, int B,
-    int L, int P, int nb, int n_struct, int origin32, int mbit,
+    const void* region, const void* unit, void* path, void* stats, int G,
+    int B, int L, int P, int nb, int n_struct, int origin32, int mbit,
     void* stream) {
   BwdArgs a;
   a.lengths = (const int32_t*)lengths; a.bstate = (const int32_t*)bstate;
@@ -144,7 +156,7 @@ int advntr_viterbi_backward(
   a.B = B; a.L = L; a.P = P; a.nb = nb; a.n_struct = n_struct;
   a.mbit = mbit;
   const int threads = 128;
-  const int blocks = (B + threads - 1) / threads;
+  const dim3 blocks((B + threads - 1) / threads, G);
   cudaStream_t s = (cudaStream_t)stream;
   if (origin32)
     viterbi_backward_kernel<int32_t><<<blocks, threads, 0, s>>>(a);

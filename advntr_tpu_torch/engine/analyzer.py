@@ -7,9 +7,9 @@ Counterpart of advntr_tpu/engine/analyzer.py (Illumina genotype path):
    all target loci;
 2. loci run in waves: per locus, an indexed BAM fetch of mapped candidates
    plus the recruited unmapped reads, prepared on the host;
-3. same-shape loci score as groups of G on the device, one kernel pair per
-   locus, and each finished group appends to a JSONL checkpoint, so an
-   interrupted run resumes where it stopped.
+3. same-shape loci score as groups of G on the device, one launch of each
+   kernel per group, and each finished group appends to a JSONL
+   checkpoint, so an interrupted run resumes where it stopped.
 
 A failure on the device (a kernel build or launch) propagates: there is
 no per-locus fallback around dispatch or collection.  A host-side error in
@@ -27,12 +27,12 @@ from collections import defaultdict
 import numpy as np
 import torch
 
-from advntr_tpu import __version__
-from advntr_tpu.config import Config, DEFAULT_CONFIG
-from advntr_tpu.io.bam import BamReader, get_reference_genome_style
-from advntr_tpu.io.sam import open_alignment
-from advntr_tpu.utils.profiler import stage_summary, time_usage
-from advntr_tpu.utils.quality import is_low_quality_read
+from advntr_tpu_torch import __version__
+from advntr_tpu_torch.config import Config, DEFAULT_CONFIG
+from advntr_tpu_torch.io.bam import BamReader, get_reference_genome_style
+from advntr_tpu_torch.io.sam import open_alignment
+from advntr_tpu_torch.utils.profiler import stage_summary, time_usage
+from advntr_tpu_torch.utils.quality import is_low_quality_read
 from advntr_tpu_torch.engine import device_analytics as da
 from advntr_tpu_torch.engine.finder import (GenotypeResult, LocusModelCache,
                                             VNTRFinder)
@@ -222,7 +222,7 @@ class GenomeAnalyzer:
                 bam._load_index()
             except FileNotFoundError:
                 try:
-                    from advntr_tpu.io.bam import build_bai
+                    from advntr_tpu_torch.io.bam import build_bai
                     logging.info("building BAI index for %s", bam.path)
                     build_bai(bam.path)
                 except Exception as error:
@@ -320,9 +320,9 @@ class GenomeAnalyzer:
         if not self.ref_filename:
             return
         try:
-            from advntr_tpu.engine.coverage_bias import (
+            from advntr_tpu_torch.engine.coverage_bias import (
                 CoverageBiasDetector, CoverageCorrector)
-            from advntr_tpu.io import fasta
+            from advntr_tpu_torch.io import fasta
             chromosomes = {f.reference_vntr.chromosome
                            for f in self.vntr_finder.values()}
             refs = {name: seq

@@ -3,7 +3,7 @@
 Counterpart of advntr_tpu/engine/device_analytics.py.  ``read_stats``
 runs the fused kernel pair (ops/viterbi_fused.py) for one locus and
 returns only O(B) scalars; ``read_stats_grouped`` scores G same-shape
-loci, one launch pair each.  ``analytics_from_path`` is the plain
+loci with one launch of each kernel.  ``analytics_from_path`` is the plain
 path-walking oracle that the backward walk's in-kernel statistics are
 held against.
 """
@@ -13,8 +13,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from advntr_tpu.models.graph import K_MATCH, R_PREFIX, R_REPEAT, R_SUFFIX
+from advntr_tpu_torch.models.graph import (K_MATCH, R_PREFIX, R_REPEAT,
+                                           R_SUFFIX)
 from advntr_tpu_torch.ops import viterbi_fused as vf
+from advntr_tpu_torch.ops.struct_model import TorchStructModel
 from advntr_tpu_torch.ops.viterbi_fused import MIN_BP_IN_REPEAT
 
 
@@ -31,9 +33,8 @@ def read_stats_grouped(models, seqs, lengths,
     """G same-shape loci: models[g] scores seqs[g] (B, L) with lengths[g];
     a dict of (G, B) tensors (counterpart of read_stats_pallas_grouped,
     device_analytics.py:276)."""
-    outs = [vf.viterbi_stats(m, seqs[g], lengths[g], return_path=return_path)
-            for g, m in enumerate(models)]
-    return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+    return vf.viterbi_stats_grouped(TorchStructModel.stack(models), seqs,
+                                    lengths, return_path=return_path)
 
 
 def flank_rates(stats: dict, accuracy_filter: bool = False) -> np.ndarray:

@@ -4,17 +4,19 @@ Counterpart of the Illumina part of advntr_tpu/engine/finder.py: all
 candidate reads of a locus (mapped, plus both orientations of unmapped)
 are encoded, padded and scored in one fused Viterbi + analytics call on
 the device; the host applies the scalar gates and the genotype model
-(advntr_tpu.engine.genotype, shared).
+(engine/genotype.py).
 
 Model "weights" are the numpy ``(art, sm)`` payload that
-``build_locus_payload`` writes: the same ``model_bank/*.pkl.gz`` files the
-reference writes and reads.
+``build_locus_payload`` writes into ``model_bank/*.pkl.gz``, pickled with
+this package's classes.  ``load_reference_payload`` also reads a bank file
+that the reference package wrote, without importing that package.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import gzip
+import importlib
 import logging
 import os
 import pickle
@@ -22,13 +24,16 @@ import pickle
 import numpy as np
 import torch
 
-from advntr_tpu import dna
-from advntr_tpu.config import Config, DEFAULT_CONFIG
-from advntr_tpu.engine.genotype import find_genotype
-from advntr_tpu.models.compiler import compile_graph
-from advntr_tpu.models.graph import build_read_matcher
-from advntr_tpu.models.profile import profile_for_repeats
-from advntr_tpu.utils.profiler import time_usage
+from advntr_tpu_torch import dna
+from advntr_tpu_torch.config import Config, DEFAULT_CONFIG
+from advntr_tpu_torch.engine.genotype import find_genotype
+from advntr_tpu_torch.models.compiler import ModelArtifact, compile_graph
+from advntr_tpu_torch.models.graph import build_read_matcher
+from advntr_tpu_torch.models.profile import profile_for_repeats
+from advntr_tpu_torch.models.struct_compiler import (StructModel,
+                                                     build_structured,
+                                                     pad_structured)
+from advntr_tpu_torch.utils.profiler import time_usage
 from advntr_tpu_torch.engine import device_analytics as da
 from advntr_tpu_torch.ops.struct_model import TorchStructModel
 
@@ -84,7 +89,6 @@ def build_locus_payload(ref_vntr, copies: int, flank_size: int,
     """Host-side model construction for one locus (finder.py:128-143):
     profile estimation, graph build, silent-state elimination, structured
     extraction.  Pure numpy output, so it can run in worker processes."""
-    from advntr_tpu.models.struct_compiler import build_structured
     left = ref_vntr.left_flanking_region[-flank_size:]
     right = ref_vntr.right_flanking_region[:flank_size]
     trans, emis = profile_for_repeats(
@@ -100,10 +104,45 @@ def build_locus_payload(ref_vntr, copies: int, flank_size: int,
 def bank_payload_path(bank_dir: str, vid, copies: int, flank_size: int,
                       error_rate: float) -> str:
     """The reference's per-locus bank file name (finder.py:146-155), so
-    banks are shared between the two packages."""
+    a bank directory the reference wrote is found and read."""
     suffix = ".slim" if SLIM_BANK else ""
     return os.path.join(bank_dir, "model_%s_%s_%s_%s%s.pkl.gz"
                         % (vid, copies, flank_size, error_rate, suffix))
+
+
+_REFERENCE_MODELS = "advntr_tpu.models."
+_OWN_MODELS = "advntr_tpu_torch.models."
+
+
+class _BankUnpickler(pickle.Unpickler):
+    """Reads bank payloads of either package with this package's classes:
+    ``advntr_tpu.models.*`` resolves to ``advntr_tpu_torch.models.*``, any
+    other ``advntr_tpu`` name is refused, and the reference package is
+    never imported."""
+
+    def find_class(self, module, name):
+        if module.startswith(_REFERENCE_MODELS):
+            module = _OWN_MODELS + module[len(_REFERENCE_MODELS):]
+            return getattr(importlib.import_module(module), name)
+        if module == "advntr_tpu" or module.startswith("advntr_tpu."):
+            raise pickle.UnpicklingError(
+                "bank payload names %s.%s; only advntr_tpu.models.* classes "
+                "are read from a reference-built bank" % (module, name))
+        return super().find_class(module, name)
+
+
+def load_reference_payload(path: str):
+    """The (art, sm) payload of one bank file, written by this package or
+    by the reference's ``buildbank``, as this package's dataclasses."""
+    with gzip.open(path, "rb") as fh:
+        return _BankUnpickler(fh).load()
+
+
+def payload_from_arrays(art_fields: dict, sm_fields: dict):
+    """This package's (ModelArtifact, StructModel) from the fields of the
+    reference's, given as plain dicts of numpy arrays and scalars
+    (``dataclasses.asdict`` of each, or ``vars``)."""
+    return ModelArtifact(**art_fields), StructModel(**sm_fields)
 
 
 class LocusModelCache:
@@ -172,8 +211,7 @@ class LocusModelCache:
         if fut is not None:
             payload, built = fut.result(), True
         if payload is None and path is not None and os.path.exists(path):
-            with gzip.open(path, "rb") as fh:
-                payload = pickle.load(fh)
+            payload = load_reference_payload(path)
         if payload is None:
             payload = build_locus_payload(ref_vntr, copies, flank_size,
                                           error_rate)
@@ -200,7 +238,6 @@ class LocusModelCache:
         return max(bucket, 512) if size > 1024 else bucket
 
     def _build_from_payload(self, art, sm) -> LocusModel:
-        from advntr_tpu.models.struct_compiler import pad_structured
         n_pad = _round_up(art.n_states,
                           self._coarse_bucket(art.n_states,
                                               self.state_bucket))

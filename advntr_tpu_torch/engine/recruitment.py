@@ -43,7 +43,7 @@ def keywords_for_locus(ref_vntr, short_reads: bool = True,
         # -complement probe set recruits the other orientation (the
         # spanning extractor already decodes both orientations).
         k = 15
-        from advntr_tpu.dna import revcomp
+        from advntr_tpu_torch.dna import revcomp
         probes = [ref_vntr.left_flanking_region[-80:],
                   ref_vntr.right_flanking_region[:80]]
         probes += [revcomp(p) for p in probes]

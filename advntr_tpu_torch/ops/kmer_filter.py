@@ -17,7 +17,7 @@ import os
 import numpy as np
 import torch
 
-from advntr_tpu import dna
+from advntr_tpu_torch import dna
 
 # reads per device chunk at most (the reference's default)
 DEFAULT_CHUNK = 1024

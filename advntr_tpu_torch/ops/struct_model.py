@@ -129,9 +129,10 @@ class TorchStructModel:
                                         device=device)
         i32 = lambda x: torch.as_tensor(np.asarray(x, dtype=np.int32),
                                         device=device)
+        r_unit = float(np.float32(_clean(np.array(sm.r_unit)).item()))
         return cls(
             P=P, nb=nb, C=C, suffix_last=int(sm.suffix_last),
-            r_unit=float(np.float32(_clean(np.array(sm.r_unit)).item())),
+            r_unit=r_unit,
             pos=f32(pos), blk=f32(blk), eM=f32(_clean(sm.eM)),
             eI=f32(_clean(sm.eI)), eI0=f32(_clean(sm.eI0)),
             Wd=f32(delete_windows(sm.dd)), Wu=f32(unit_windows(sm.r_unit, C)),
@@ -155,5 +156,66 @@ class TorchStructModel:
 
     def shape_key(self) -> tuple:
         """Models with equal keys share kernel shapes and stack in a group."""
-        return (self.P, self.nb, self.struct_to_art.shape[0],
+        return (self.P, self.nb, self.C, self.struct_to_art.shape[0],
                 self.Wd.shape[0], self.Wu.shape[0])
+
+    @staticmethod
+    def stack(models) -> "StructModelStack":
+        """G same-shape models as one set of (G, ...) tables: what one
+        grouped kernel launch reads.  A single model stacks as views."""
+        models = list(models)
+        keys = {m.shape_key() for m in models}
+        if len(keys) != 1:
+            raise ValueError(f"cannot stack models of shapes {sorted(keys)}")
+        if len({m.device for m in models}) != 1:
+            raise ValueError("cannot stack models on different devices")
+        m0 = models[0]
+        if len(models) == 1:
+            tables = {name: getattr(m0, name)[None] for name in STACKED}
+        else:
+            tables = {name: torch.stack([getattr(m, name) for m in models])
+                      for name in STACKED}
+        return StructModelStack(
+            P=m0.P, nb=m0.nb, C=m0.C, models=models,
+            suffix_last=torch.tensor([m.suffix_last for m in models],
+                                     dtype=torch.int32, device=m0.device),
+            r_unit=torch.tensor([m.r_unit for m in models],
+                                dtype=torch.float32, device=m0.device),
+            **tables)
+
+
+# the tensors of a TorchStructModel that a grouped launch reads
+STACKED = ("pos", "blk", "eM", "eI", "eI0", "Wd", "Wu", "blk_idx",
+           "exp_base", "unit_last", "region", "unit")
+
+
+@dataclasses.dataclass
+class StructModelStack:
+    """The tables of G same-shape locus models with a leading group axis,
+    contiguous, on one device; ``models`` are the stacked models."""
+    P: int
+    nb: int
+    C: int
+    models: list
+    pos: torch.Tensor             # (G, len(POS_ROWS), P) f32
+    blk: torch.Tensor             # (G, len(BLK_ROWS), nb) f32
+    eM: torch.Tensor              # (G, P, 4) f32
+    eI: torch.Tensor              # (G, P, 4) f32
+    eI0: torch.Tensor             # (G, nb, 4) f32
+    Wd: torch.Tensor              # (G, n_rounds_p, P) f32
+    Wu: torch.Tensor              # (G, n_rounds_c, C) f32
+    blk_idx: torch.Tensor         # (G, P) int32
+    exp_base: torch.Tensor        # (G, P) int32
+    unit_last: torch.Tensor       # (G, C) int32
+    region: torch.Tensor          # (G, 2P+nb) int32
+    unit: torch.Tensor            # (G, 2P+nb) int32
+    suffix_last: torch.Tensor     # (G,) int32, the models' scalars
+    r_unit: torch.Tensor          # (G,) f32
+
+    @property
+    def G(self) -> int:
+        return len(self.models)
+
+    @property
+    def device(self) -> torch.device:
+        return self.pos.device

@@ -13,12 +13,15 @@ carry it, both hand-written CUDA C++ (``csrc/``):
   the planes, writes the struct-space path and accumulates the genotyping
   statistics on the way (reference hmm_utils.py:155-286 semantics).
 
-Each has a plain PyTorch twin in this module (``*_reference``).  The
-wrapper runs the twin for CPU tensors only; for CUDA tensors it launches
-the kernel or raises.  The twins follow the reference's arithmetic step by
-step (the same float32 adds in the same order, strict ``>`` picks, shifts
-that wrap exactly like the reference's lane rolls), so their results are
-the reference kernel's results.
+Both kernels take G same-shape loci in one launch (``*_grouped``, on a
+``StructModelStack``); the per-locus calls are the G = 1 case of the same
+path.  Each has a plain PyTorch twin in this module (``*_reference``); the
+grouped twin is the per-locus twin looped.  The wrapper runs the twin for
+CPU tensors only; for CUDA tensors it launches the kernel or raises.  The
+twins follow the reference's arithmetic step by step (the same float32
+adds in the same order, strict ``>`` picks, shifts that wrap exactly like
+the reference's lane rolls), so their results are the reference kernel's
+results.
 
 Origin codes live in struct space: M_p = p, I_p = P+p, I0_b = 2P+b, and
 the hub sentinel 2P+nb+b stands for "the hub of block b one column back".
@@ -29,10 +32,11 @@ from __future__ import annotations
 
 import torch
 
-from advntr_tpu.models.graph import R_PREFIX, R_REPEAT, R_SUFFIX
+from advntr_tpu_torch.models.graph import R_PREFIX, R_REPEAT, R_SUFFIX
 from advntr_tpu_torch.ops import _kernels
 from advntr_tpu_torch.ops.struct_model import (
-    LN05, MBIT16, MBIT32, NEG, TorchStructModel, origin_params)
+    LN05, MBIT16, MBIT32, NEG, StructModelStack, TorchStructModel,
+    origin_params)
 
 BIG = 1 << 30
 MIN_BP_IN_REPEAT = 3  # reference: hmm_utils.py:165
@@ -304,69 +308,141 @@ def backward_stats_reference(m: TorchStructModel, lengths, bstate, oMI, oXH):
     return path, stats.to(torch.int32)
 
 
-def fused_forward(m: TorchStructModel, seqs, lengths, origin32: bool = False):
-    """B1: the CUDA kernel for CUDA tensors, the plain twin for CPU ones."""
-    _check_inputs(m, seqs, lengths)
+def _check_group_inputs(s: StructModelStack, seqs, lengths):
+    if seqs.dim() != 3 or seqs.shape[0] != s.G or \
+            lengths.shape != seqs.shape[:2]:
+        raise ValueError(f"seqs must be (G={s.G}, B, L) and lengths (G, B); "
+                         f"got {tuple(seqs.shape)} and {tuple(lengths.shape)}")
+    if seqs.device != s.device or lengths.device != s.device:
+        raise ValueError(f"inputs on {seqs.device}/{lengths.device}, models "
+                         f"on {s.device}")
+
+
+def _loop_twin(twin, s: StructModelStack, *per_locus):
+    """The grouped twin: the per-locus twin on each locus, stacked."""
+    outs = [twin(m, *(x[g] for x in per_locus))
+            for g, m in enumerate(s.models)]
+    return tuple(torch.stack(parts) for parts in zip(*outs))
+
+
+def fused_forward_grouped(s: StructModelStack, seqs, lengths,
+                          origin32: bool = False):
+    """B1 for G loci, seqs (G, B, L) and lengths (G, B): one launch of the
+    CUDA kernel for CUDA tensors, the looped twin for CPU ones.  Returns
+    best (G, B), bstate (G, B), oMI (G, L, B, 2P), oXH (G, L, B, 2nb)."""
+    _check_group_inputs(s, seqs, lengths)
     if seqs.is_cuda:
-        return _kernels.forward(m, seqs, lengths, origin32)
+        return _kernels.forward(s, seqs, lengths, origin32)
     if seqs.device.type == "cpu":
-        return fused_forward_reference(m, seqs, lengths, origin32)
+        return fused_forward_grouped_reference(s, seqs, lengths, origin32)
     raise ValueError(f"no fused_forward for device {seqs.device}")
 
 
-def backward_stats(m: TorchStructModel, lengths, bstate, oMI, oXH):
-    """B2: the CUDA kernel for CUDA tensors, the plain twin for CPU ones."""
+def fused_forward_grouped_reference(s: StructModelStack, seqs, lengths,
+                                    origin32: bool = False):
+    return _loop_twin(
+        lambda m, q, n: fused_forward_reference(m, q, n, origin32),
+        s, seqs, lengths)
+
+
+def backward_stats_grouped(s: StructModelStack, lengths, bstate, oMI, oXH):
+    """B2 for G loci on planes (G, L, B, ...): one launch of the CUDA
+    kernel for CUDA tensors, the looped twin for CPU ones.  Returns path
+    (G, B, L) and stats (G, B, N_STATS)."""
     if oMI.is_cuda:
-        return _kernels.backward(m, lengths, bstate, oMI, oXH)
+        return _kernels.backward(s, lengths, bstate, oMI, oXH)
     if oMI.device.type == "cpu":
-        return backward_stats_reference(m, lengths, bstate, oMI, oXH)
+        return backward_stats_grouped_reference(s, lengths, bstate, oMI, oXH)
     raise ValueError(f"no backward_stats for device {oMI.device}")
 
 
+def backward_stats_grouped_reference(s: StructModelStack, lengths, bstate,
+                                     oMI, oXH):
+    return _loop_twin(backward_stats_reference, s, lengths, bstate, oMI, oXH)
+
+
+def fused_forward(m: TorchStructModel, seqs, lengths, origin32: bool = False):
+    """B1 for one locus: the G = 1 case of ``fused_forward_grouped``."""
+    _check_inputs(m, seqs, lengths)
+    return tuple(x[0] for x in fused_forward_grouped(
+        TorchStructModel.stack([m]), seqs[None], lengths[None], origin32))
+
+
+def backward_stats(m: TorchStructModel, lengths, bstate, oMI, oXH):
+    """B2 for one locus: the G = 1 case of ``backward_stats_grouped``."""
+    return tuple(x[0] for x in backward_stats_grouped(
+        TorchStructModel.stack([m]), lengths[None], bstate[None], oMI[None],
+        oXH[None]))
+
+
 def finish_stats(best, stats, path=None):
-    """The analytics dict from the walk's (B, N_STATS) output: the repeats
-    formula tail of analytics_from_path on O(B) scalars
+    """The analytics dict from the walk's (..., N_STATS) output: the
+    repeats formula tail of analytics_from_path on O(B) scalars
     (pallas_viterbi.py:876-897)."""
-    starts, ends = stats[:, S_STARTS], stats[:, S_ENDS]
-    fs, ls, fe, le = (stats[:, S_FS], stats[:, S_LS], stats[:, S_FE],
-                      stats[:, S_LE])
+    starts, ends = stats[..., S_STARTS], stats[..., S_ENDS]
+    fs, ls, fe, le = (stats[..., S_FS], stats[..., S_LS], stats[..., S_FE],
+                      stats[..., S_LE])
     have_all = (fs != BIG) & (ls != -BIG) & (fe != BIG) & (le != -BIG)
     delta = (have_all & (fe < fs) & (ls > le)).to(torch.int32)
     out = {
         "logp": best,
         "repeats": torch.maximum(starts, ends) + delta,
-        "n_matches": stats[:, S_NMATCH],
-        "repeat_bp": stats[:, S_REPBP],
-        "left_flank_bp": stats[:, S_LBP],
-        "right_flank_bp": stats[:, S_RBP],
-        "left_flank_matches": stats[:, S_LMATCH],
-        "right_flank_matches": stats[:, S_RMATCH],
+        "n_matches": stats[..., S_NMATCH],
+        "repeat_bp": stats[..., S_REPBP],
+        "left_flank_bp": stats[..., S_LBP],
+        "right_flank_bp": stats[..., S_RBP],
+        "left_flank_matches": stats[..., S_LMATCH],
+        "right_flank_matches": stats[..., S_RMATCH],
     }
     if path is not None:
         out["path"] = path
     return out
 
 
-def _pipeline(m, seqs, lengths, origin32, forward=fused_forward,
-              backward=backward_stats):
+def _pipeline(s: StructModelStack, seqs, lengths, origin32,
+              forward=fused_forward_grouped,
+              backward=backward_stats_grouped):
+    """Forward, walk and the length-1 rule for G loci: best (G, B), bstate
+    (G, B), struct-space path (G, B, L), stats (G, B, N_STATS)."""
     if seqs.shape[-1] > MAX_COLUMNS:
         raise NotImplementedError(
             f"reads of {seqs.shape[-1]} columns need the checkpointed "
             "traceback, which is not ported yet (ROADMAP.md A9)")
-    best, bstate, oMI, oXH = forward(m, seqs, lengths, origin32)
-    path, stats = backward(m, lengths, bstate, oMI, oXH)
+    best, bstate, oMI, oXH = forward(s, seqs, lengths, origin32)
+    path, stats = backward(s, lengths, bstate, oMI, oXH)
     # a length-1 read's path is its end state (pallas_viterbi.py:836-837)
-    path = torch.where((lengths == 1)[:, None], bstate[:, None], path)
+    path = torch.where((lengths == 1)[..., None], bstate[..., None], path)
     return best, bstate, path, stats
+
+
+def _art_path(s: StructModelStack, path_s):
+    """Struct-space paths (G, B, L) in each locus's artifact space."""
+    return torch.stack([m.struct_to_art[path_s[g].long()]
+                        for g, m in enumerate(s.models)])
+
+
+def viterbi_stats_grouped(s: StructModelStack, seqs, lengths,
+                          return_path: bool = False, origin32: bool = False,
+                          forward=fused_forward_grouped,
+                          backward=backward_stats_grouped):
+    """Viterbi + traceback + per-read analytics for G loci: a dict of
+    (G, B) tensors, with the artifact-space paths (G, B, L) when
+    ``return_path``."""
+    best, _, path_s, stats = _pipeline(s, seqs, lengths, origin32, forward,
+                                       backward)
+    return finish_stats(best, stats,
+                        _art_path(s, path_s) if return_path else None)
 
 
 def viterbi_stats(m: TorchStructModel, seqs, lengths,
                   return_path: bool = False, origin32: bool = False):
-    """Viterbi + traceback + per-read analytics: a dict of (B,) tensors,
-    with the artifact-space path (B, L) when ``return_path``."""
-    best, _, path_s, stats = _pipeline(m, seqs, lengths, origin32)
-    path = m.struct_to_art[path_s.long()] if return_path else None
-    return finish_stats(best, stats, path)
+    """Viterbi + traceback + per-read analytics for one locus: a dict of
+    (B,) tensors, with the artifact-space path (B, L) when
+    ``return_path``."""
+    _check_inputs(m, seqs, lengths)
+    out = viterbi_stats_grouped(TorchStructModel.stack([m]), seqs[None],
+                                lengths[None], return_path, origin32)
+    return {k: v[0] for k, v in out.items()}
 
 
 def viterbi_stats_reference(m: TorchStructModel, seqs, lengths,
@@ -374,19 +450,21 @@ def viterbi_stats_reference(m: TorchStructModel, seqs, lengths,
                             origin32: bool = False):
     """viterbi_stats through the plain twins, on any device: what the
     kernels are held against on the card."""
-    best, _, path_s, stats = _pipeline(
-        m, seqs, lengths, origin32, forward=fused_forward_reference,
-        backward=backward_stats_reference)
-    path = m.struct_to_art[path_s.long()] if return_path else None
-    return finish_stats(best, stats, path)
+    out = viterbi_stats_grouped(
+        TorchStructModel.stack([m]), seqs[None], lengths[None], return_path,
+        origin32, forward=fused_forward_grouped_reference,
+        backward=backward_stats_grouped_reference)
+    return {k: v[0] for k, v in out.items()}
 
 
 def viterbi_batch(m: TorchStructModel, seqs, lengths,
                   return_path: bool = True, origin32: bool = False):
     """(best (B,), end_state (B,), path (B, L) or None), states in
     artifact space: the contract of viterbi_struct_batch."""
-    best, bstate, path_s, _ = _pipeline(m, seqs, lengths, origin32)
-    end_state = m.struct_to_art[bstate.long()]
+    _check_inputs(m, seqs, lengths)
+    best, bstate, path_s, _ = _pipeline(
+        TorchStructModel.stack([m]), seqs[None], lengths[None], origin32)
+    end_state = m.struct_to_art[bstate[0].long()]
     if not return_path:
-        return best, end_state, None
-    return best, end_state, m.struct_to_art[path_s.long()]
+        return best[0], end_state, None
+    return best[0], end_state, m.struct_to_art[path_s[0].long()]

@@ -1,22 +1,25 @@
 """Seeded synthetic loci, reads and panels for the port's tests and its
-on-card smoke run.  Host-only: every model and read comes from the
-reference's jax-free builders, so the port and the reference score the
-same inputs."""
+on-card smoke run.  Host-only: every model and read comes from this
+package's copies of the reference's host model code, from fixed seeds, so
+the port and the reference score the same inputs."""
 
 from __future__ import annotations
 
 import os
 import random
 
-from advntr_tpu.engine.simulate import simulate_diploid_reads
-from advntr_tpu.io.bam import BamRead, BamWriter, build_bai
-from advntr_tpu.models.compiler import compile_graph
-from advntr_tpu.models.db import (create_vntrs_database,
+from advntr_tpu_torch import dna
+from advntr_tpu_torch.engine.simulate import (haplotype_sequence, mutate,
+                                              simulate_diploid_reads)
+from advntr_tpu_torch.io.bam import BamRead, BamWriter, build_bai
+from advntr_tpu_torch.models.compiler import compile_graph
+from advntr_tpu_torch.models.db import (create_vntrs_database,
                                   save_reference_vntr_to_database)
-from advntr_tpu.models.graph import build_read_matcher
-from advntr_tpu.models.profile import profile_for_repeats
-from advntr_tpu.models.reference_vntr import ReferenceVNTR
-from advntr_tpu.models.struct_compiler import build_structured, pad_structured
+from advntr_tpu_torch.models.graph import build_read_matcher
+from advntr_tpu_torch.models.profile import profile_for_repeats
+from advntr_tpu_torch.models.reference_vntr import ReferenceVNTR
+from advntr_tpu_torch.models.struct_compiler import (build_structured,
+                                                     pad_structured)
 
 CSTB_PATTERN = "CGCGGGGCGGGG"   # the CSTB dodecamer
 
@@ -48,6 +51,34 @@ def locus_model(units, left: str, right: str, copies: int,
     g = build_read_matcher(left, right, trans, emis, copies, err)
     art = compile_graph(g)
     return art, padded_structured(g, art, pos_bucket, unit_bucket)
+
+
+def build_cstb_locus(read_length: int = 150):
+    """The production-shape locus of the kernel cell: the CSTB dodecamer
+    x3 between random ``read_length`` bp flanks (seed 42), error rate
+    0.05.  Returns (graph, art, left, right, pattern); with the engine's
+    padding at 150 bp it has n_states 927, P 512, C 16, nb 18."""
+    rng = random.Random(42)
+    left = "".join(rng.choice("ACGT") for _ in range(read_length))
+    right = "".join(rng.choice("ACGT") for _ in range(read_length))
+    copies = int(round(read_length / len(CSTB_PATTERN) + 0.5))
+    trans, emis = profile_for_repeats([CSTB_PATTERN] * 3, 0.05)
+    graph = build_read_matcher(left, right, trans, emis, copies, 0.05)
+    return graph, compile_graph(graph), left, right, CSTB_PATTERN
+
+
+def simulate_cstb_reads(left: str, pattern: str, right: str,
+                        read_length: int, n_reads: int, seed: int = 9):
+    """``n_reads`` reads of ``read_length`` bp drawn uniformly from 2- and
+    5-copy haplotypes, 0.3% substitutions."""
+    rng = random.Random(seed)
+    reads = []
+    for _ in range(n_reads):
+        copies = rng.choice([2, 5])
+        hap = haplotype_sequence(left, pattern, copies, right)
+        start = rng.randint(0, len(hap) - read_length)
+        reads.append(mutate(hap[start:start + read_length], 0.003, rng))
+    return reads
 
 
 def write_cstb_sample(workdir: str, read_length: int = 100,
@@ -122,7 +153,6 @@ def write_panel(workdir: str, n_loci: int = 16, read_length: int = 150,
 
 def encode_reads(reads: list[str], pad_to: int):
     """(B, pad_to) int8 bases and (B,) int32 lengths, as the engine pads."""
-    from advntr_tpu import dna
     rows = [dna.encode(r) for r in reads]
     return dna.pad_batch(rows, pad_to=pad_to, multiple=32)
 

@@ -7,22 +7,31 @@ Phases (any failed check exits non-zero):
 
 1. device: requires CUDA and a compute-capability 9.0 card; prints the
    card's name and power limit as nvidia-smi reports them;
-2. build: compiles advntr_tpu_torch/csrc/*.cu with nvcc for sm_90a;
+2. build: compiles advntr_tpu_torch/csrc/*.cu with nvcc for sm_90a, one
+   compiler per source side by side, and prints what ptxas -v says of
+   each kernel (registers, shared memory, spills);
 3. kernels at the production shape (the CSTB locus, n_states 927, P 512;
    4096 simulated 150 bp reads, seed 9, padded to L=160) against their
    plain PyTorch twins on the card: B2 bit-identical on the same planes,
    the read_stats dicts equal, logp within rtol 1e-4 / atol 1e-2, 256
    sampled paths rescoring in float64 to the optimum; also a B=5 batch and
-   a ragged batch with length-1 rows;
+   a ragged batch with length-1 rows; then a group of 8 same-shape panel
+   loci with their own read batches (a few hundred reads each, ragged,
+   padded to at least 512 rows): one grouped B1 and one grouped B2 launch,
+   bit-identical to the per-locus twins;
 4. timing: median of 10 CUDA-event-timed runs after warm-up, kernels and
-   twins, as reads/s;
+   twins, as reads/s, at the cell (G 1, B 4096) and, the kernels, at the
+   group shape (G 8), each beside its bound: the larger of the bytes it
+   must move over 3.35 TB/s and its float32 operations over 67 TFLOP/s,
+   counted from this run's inputs;
    also the recruitment filter's top-M count (plain torch ops) at the
    chunk shape of a 6,719-locus panel, against the same call on the host;
 5. end to end: the port's CLI on a 24-locus, two-bucket panel (150 bp
    reads, coverage 30; more loci than the filter's top_m of 16, so
    recruitment takes the top-M path as real panels do) and on the CSTB
    2/5 fixture, with --device cuda and --device cpu: identical outputs,
-   CSTB 2/5, both kernels launched.  Prints the cold run's stage totals.
+   CSTB 2/5, both kernels launched, and in the warm rerun once per locus
+   group, not once per locus.  Prints the cold run's stage totals.
 
     python3 chip_smoke.py --profile
 
@@ -50,6 +59,11 @@ import torch
 LOGP_TOL = dict(rtol=1e-4, atol=1e-2)
 N_READS, READ_LEN, L_PAD = 4096, 150, 160
 PANEL_LOCI = 24
+# the grouped kernel check: 8 same-shape loci, padded to 512 rows each as
+# the engine pads a panel of more than 16 loci
+GROUP, GROUP_ROWS = 8, 512
+# 24 loci in two shape buckets, groups of 8: at most 6 launches of a kernel
+MAX_GROUP_LAUNCHES = 6
 # recruitment cell: a 6,719-locus panel, ~40 15-mer keywords per locus,
 # one chunk of 150 bp reads
 RECRUIT_LOCI, RECRUIT_KEYWORDS = 6719, 40
@@ -103,22 +117,26 @@ def phase_device() -> str:
 def phase_build(kernels) -> None:
     shutil.rmtree(kernels.BUILD_DIR, ignore_errors=True)
     kernels.build()
+    for line in kernels.BUILD_LOG.splitlines():
+        if "Compiling entry" in line or "Used" in line or "spill" in line:
+            log("build: " + line.strip())
     log(f"build: nvcc sm_90a, {kernels.BUILD_SECONDS:.2f} s")
 
 
 def phase_kernels(dev):
-    from bench import build_locus, simulate_reads
     from advntr_tpu_torch.ops import viterbi_fused as vf
     from advntr_tpu_torch.ops.struct_model import TorchStructModel
-    from advntr_tpu_torch.synthetic import (encode_reads, padded_structured,
-                                            rescore)
+    from advntr_tpu_torch.synthetic import (build_cstb_locus, encode_reads,
+                                            padded_structured, rescore,
+                                            simulate_cstb_reads)
 
-    graph, art, left, right, pattern = build_locus(READ_LEN)
+    graph, art, left, right, pattern = build_cstb_locus(READ_LEN)
     sm = padded_structured(graph, art, pos_bucket=128)
     m = TorchStructModel.from_payload(art, sm, dev)
     check((art.n_states, m.P, m.C, m.nb) == (927, 512, 16, 18),
           f"production locus shape {(art.n_states, m.P, m.C, m.nb)}")
-    reads = simulate_reads(left, pattern, right, READ_LEN, N_READS, seed=9)
+    reads = simulate_cstb_reads(left, pattern, right, READ_LEN, N_READS,
+                                seed=9)
     batch, lengths = encode_reads(reads, READ_LEN)
     check(batch.shape == (N_READS, L_PAD), f"batch shape {batch.shape}")
     seqs = torch.as_tensor(batch, device=dev)
@@ -190,8 +208,102 @@ def phase_kernels(dev):
     return m, seqs, lens, (b1_err, b2_err, rs_err)
 
 
-def phase_timing(m, seqs, lens):
+def phase_group(dev):
+    """G = 8 same-shape loci of the panel with their own read batches, as
+    the engine prepares and pads them: one grouped launch of each kernel
+    against the per-locus twins.  Returns (stack, seqs, lengths)."""
+    from advntr_tpu_torch.engine.finder import LocusModelCache, VNTRFinder
+    from advntr_tpu_torch.io.bam import BamReader
+    from advntr_tpu_torch.models.db import load_unique_vntrs_data
+    from advntr_tpu_torch.ops import _kernels
     from advntr_tpu_torch.ops import viterbi_fused as vf
+    from advntr_tpu_torch.ops.struct_model import TorchStructModel
+    from advntr_tpu_torch.synthetic import write_panel
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_group_")
+    try:
+        db, bam, _ = write_panel(tmp, n_loci=PANEL_LOCI, read_length=150,
+                                 coverage=30)
+        refs = load_unique_vntrs_data(db)
+        by_vid = {}
+        with BamReader(bam) as fh:
+            for rec in fh:
+                by_vid.setdefault(int(rec.query_name.split("_")[0]),
+                                  []).append((rec.query_name, rec.seq))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    cache = LocusModelCache(device=dev)
+    rng = np.random.default_rng(9)
+    groups = {}
+    for ref in refs:
+        finder = VNTRFinder(ref, model_cache=cache)
+        lm = finder.get_model(150)
+        # every fifth read cut short, so the batch is ragged
+        reads = [(n, s[:int(rng.integers(20, 150))] if i % 5 == 0 else s)
+                 for i, (n, s) in enumerate(by_vid[ref.id])]
+        _, rows, _ = finder.prepare_rows([], reads)
+        groups.setdefault(lm.shape_key(), []).append((lm.model, rows))
+    members = max(groups.values(), key=len)[:GROUP]
+    check(len(members) == GROUP, f"panel has no {GROUP} same-shape loci")
+    n_rows = [len(rows) for _, rows in members]
+    # the engine's batch bucket: a power of two, at least GROUP_ROWS
+    b_pad = max(GROUP_ROWS, 1 << (max(n_rows) - 1).bit_length())
+    batches = [VNTRFinder.pad_rows(rows, length_bucket=1, pad_to=L_PAD,
+                                   b_pad=b_pad) for _, rows in members]
+    seqs = torch.as_tensor(np.stack([b for b, _ in batches]), device=dev)
+    lens = torch.as_tensor(np.stack([ln for _, ln in batches]), device=dev)
+    stack = TorchStructModel.stack([m for m, _ in members])
+    n0 = dict(_kernels.LAUNCHES)
+    got = vf.fused_forward_grouped(stack, seqs, lens)
+    walk = vf.backward_stats_grouped(stack, lens, *got[1:])
+    torch.cuda.synchronize()
+    check(_kernels.LAUNCHES["forward"] == n0["forward"] + 1
+          and _kernels.LAUNCHES["backward"] == n0["backward"] + 1,
+          "the group took more than one launch of each kernel")
+    for g, (m, _) in enumerate(members):
+        want = vf.fused_forward_reference(m, seqs[g], lens[g])
+        check(all(torch.equal(x[g], w) for x, w in zip(got, want)),
+              f"grouped B1 differs from the per-locus twin at locus {g}")
+        want_walk = vf.backward_stats_reference(m, lens[g], *want[1:])
+        check(all(torch.equal(x[g], w) for x, w in zip(walk, want_walk)),
+              f"grouped B2 differs from the per-locus twin at locus {g}")
+    log(f"group: G={GROUP} same-shape panel loci (P={stack.P}, C={stack.C}), "
+        f"{min(n_rows)}-{max(n_rows)} rows each padded to {b_pad}: one "
+        f"B1 and one B2 launch, best, bstate, both planes, paths and "
+        f"statistics bit-identical to the per-locus twins")
+    return stack, seqs, lens
+
+
+def bounds_ms(stack, seqs, lens):
+    """(B1 bound, B2 bound, which) in ms for these inputs on one H100:
+    the larger of bytes moved once over 3.35 TB/s and float32 (B1) or
+    integer (B2) operations over 67 T/s."""
+    G, B, L = seqs.shape
+    P, nb = stack.P, stack.nb
+    rounds = stack.Wd.shape[1]
+    width = 2 if 2 * P + 2 * nb + 2 < (1 << 13) else 4
+    tables = sum(getattr(stack, n).numel() * getattr(stack, n).element_size()
+                 for n in ("pos", "blk", "eM", "eI", "eI0", "Wd", "Wu",
+                           "blk_idx", "exp_base", "unit_last"))
+    planes = G * L * B * (2 * P + 2 * nb) * width
+    b1_bytes = seqs.numel() + 4 * lens.numel() + tables + planes + 8 * G * B
+    active = int(lens.clamp(max=L).sum())
+    frozen = G * B * L - active
+    # per position: 21 adds and compares in the emitting layer, 10 in the
+    # chain inputs, the extraction and the hub entries, 2 a doubling round
+    b1_ops = P * (active * (31 + 2 * rounds) + frozen * 21)
+    b1 = max((b1_bytes / 3.35e12, "bytes"), (b1_ops / 67e12, "operations"))
+    # the walk reads one origin code and writes one path entry per read
+    # and column, and 16 statistics per read; about 40 integer operations
+    # a column
+    b2_bytes = G * B * (L * (width + 4) + 64 + 8) + 8 * stack.region.numel()
+    b2 = max((b2_bytes / 3.35e12, "bytes"),
+             (40 * G * B * L / 67e12, "operations"))
+    return b1[0] * 1e3, b1[1], b2[0] * 1e3, b2[1]
+
+
+def phase_timing(m, seqs, lens, group):
+    from advntr_tpu_torch.ops import viterbi_fused as vf
+    from advntr_tpu_torch.ops.struct_model import TorchStructModel
     best, bstate, oMI, oXH = vf.fused_forward_reference(m, seqs, lens)
     runs = {
         "B1": (lambda: vf.fused_forward(m, seqs, lens),
@@ -212,6 +324,23 @@ def phase_timing(m, seqs, lens):
             f"({N_READS / ms[name][0] * 1e3:.0f} reads/s), plain "
             f"{ms[name][1]:.3f} ms ({N_READS / ms[name][1] * 1e3:.0f} "
             f"reads/s) at B={N_READS}, L={L_PAD}, P={m.P}")
+    del best, bstate, oMI, oXH
+    cell = bounds_ms(TorchStructModel.stack([m]), seqs[None], lens[None])
+    ms["bound"] = {"B1": cell[:2], "B2": cell[2:]}
+    log(f"bound at the cell: B1 {cell[0]:.4f} ms ({cell[1]}), reached "
+        f"{cell[0] / ms['B1'][0]:.4f}; B2 {cell[2]:.5f} ms ({cell[3]}), "
+        f"reached {cell[2] / ms['B2'][0]:.4f}")
+    # the group shape: one launch of each kernel for G loci
+    stack, gseqs, glens = group
+    planes = vf.fused_forward_grouped(stack, gseqs, glens)
+    g1 = time_ms(lambda: vf.fused_forward_grouped(stack, gseqs, glens))
+    g2 = time_ms(lambda: vf.backward_stats_grouped(stack, glens,
+                                                   *planes[1:]))
+    gb = bounds_ms(stack, gseqs, glens)
+    ms["group"] = {"B1": g1, "B2": g2, "B1_bound": gb[0], "B2_bound": gb[2]}
+    log(f"timing group (G={stack.G}, B={gseqs.shape[1]}, L={gseqs.shape[2]}, "
+        f"P={stack.P}): B1 {g1:.3f} ms (bound {gb[0]:.4f} ms, {gb[1]}), "
+        f"B2 {g2:.3f} ms (bound {gb[2]:.5f} ms, {gb[3]})")
     return ms
 
 
@@ -278,14 +407,14 @@ def run_cli(argv) -> tuple[str, float]:
 
 
 def stage_totals() -> str:
-    from advntr_tpu.utils.profiler import STAGE_COUNTS, STAGE_TOTALS
+    from advntr_tpu_torch.utils.profiler import STAGE_COUNTS, STAGE_TOTALS
     return ", ".join(f"{k} {v:.3f} s over {STAGE_COUNTS[k]} calls"
                      for k, v in sorted(STAGE_TOTALS.items(),
                                         key=lambda kv: -kv[1]))
 
 
 def reset_stages() -> None:
-    from advntr_tpu.utils.profiler import STAGE_COUNTS, STAGE_TOTALS
+    from advntr_tpu_torch.utils.profiler import STAGE_COUNTS, STAGE_TOTALS
     STAGE_TOTALS.clear()
     STAGE_COUNTS.clear()
 
@@ -357,8 +486,15 @@ def phase_end_to_end(kernels, profile: bool):
             os.remove(os.path.join(wd, "results_checkpoint_panel.bam.jsonl"))
             return run_cli(warm_argv)
 
+        kernels.reset_launches()
         warm, warm_s = warm_run()
+        warm_launches = dict(kernels.LAUNCHES)
         check(warm == gpu["panel"], "warm panel rerun differs")
+        log(f"warm panel: launches {warm_launches} for {PANEL_LOCI} loci")
+        for k, n in warm_launches.items():
+            check(0 < n <= MAX_GROUP_LAUNCHES,
+                  f"warm panel launched {k} {n} times: once per locus "
+                  f"group is at most {MAX_GROUP_LAUNCHES}")
         if profile:
             check(profiled(warm_run)[0] == gpu["panel"],
                   "profiled warm panel rerun differs")
@@ -375,12 +511,14 @@ def phase_end_to_end(kernels, profile: bool):
         right = sum(calls.get(str(v)) == "%d/%d" % ab
                     for v, ab in truth.items())
         n = len(truth)
+        check(right == n,
+              f"panel: {right}/{n} loci equal to the simulated genotype")
         log(f"end to end: CSTB 2/5; panel {right}/{n} loci equal to the "
             f"simulated genotype; cuda == cpu outputs")
         log(f"panel: {n} loci in {secs['panel']:.2f} s cold "
             f"({n / secs['panel']:.3f} loci/s, host model builds included), "
             f"{warm_s:.2f} s warm from the bank ({n / warm_s:.3f} loci/s)")
-        return launches
+        return launches, warm_launches
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -392,21 +530,32 @@ def main() -> None:
     from advntr_tpu_torch.ops import _kernels
     phase_build(_kernels)
     m, seqs, lens, (b1_err, b2_err, rs_err) = phase_kernels(dev)
-    ms = phase_timing(m, seqs, lens)
-    del seqs, lens
+    group = phase_group(dev)
+    ms = phase_timing(m, seqs, lens, group)
+    del seqs, lens, group
     phase_recruitment(dev)
-    launches = phase_end_to_end(_kernels, profile)
+    launches, warm_launches = phase_end_to_end(_kernels, profile)
     kernels = [
         {"name": "viterbi_forward", "route": "cuda",
          "source": "advntr_tpu_torch/csrc/viterbi_forward.cu",
          "replaces": "advntr_tpu/ops/pallas_viterbi.py:554",
          "launches": launches["forward"], "max_abs_err": b1_err,
-         "ms": ms["B1"][0], "plain_ms": ms["B1"][1]},
+         "ms": ms["B1"][0], "plain_ms": ms["B1"][1],
+         "bound_ms": ms["bound"]["B1"][0],
+         "bound_by": ms["bound"]["B1"][1], "library_ms": None,
+         "warm_panel_launches": warm_launches["forward"],
+         "group_ms": ms["group"]["B1"],
+         "group_bound_ms": ms["group"]["B1_bound"]},
         {"name": "viterbi_backward", "route": "cuda",
          "source": "advntr_tpu_torch/csrc/viterbi_backward.cu",
          "replaces": "advntr_tpu/ops/pallas_viterbi.py:766",
          "launches": launches["backward"], "max_abs_err": b2_err,
-         "ms": ms["B2"][0], "plain_ms": ms["B2"][1]},
+         "ms": ms["B2"][0], "plain_ms": ms["B2"][1],
+         "bound_ms": ms["bound"]["B2"][0],
+         "bound_by": ms["bound"]["B2"][1], "library_ms": None,
+         "warm_panel_launches": warm_launches["backward"],
+         "group_ms": ms["group"]["B2"],
+         "group_bound_ms": ms["group"]["B2_bound"]},
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

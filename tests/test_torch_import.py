@@ -1,8 +1,10 @@
-"""The port imports and genotypes with jax absent (the GPU host has no
-jax), never names jax in its sources, and rejects what it does not run
-yet with the ROADMAP item."""
+"""The port imports and genotypes with jax, the JAX package ``advntr_tpu``
+and the JAX side's ``bench`` module all unimportable, never imports any of
+them in its sources or in ``chip_smoke.py``, and rejects what it does not
+run yet with the ROADMAP item."""
 
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -23,7 +25,9 @@ PKG = Path(advntr_tpu_torch.__file__).parent
 
 NO_JAX_RUN = r"""
 import importlib, os, pkgutil, sys, tempfile
-sys.modules["jax"] = None          # any import of jax now fails
+sys.modules["jax"] = None          # any import of these now fails
+sys.modules["advntr_tpu"] = None
+sys.modules["bench"] = None
 import torch
 torch.set_num_threads(1)
 import advntr_tpu_torch
@@ -43,7 +47,8 @@ out = os.path.join(d, "out.txt")
 cli.main(["genotype", "-a", bam, "-m", db, "--working_directory", d,
           "--disable_logging", "-o", out, "--device", "cpu"])
 print(open(out).read().split())
-assert not [m for m in sys.modules if m.startswith("jax.")]
+assert not [m for m in sys.modules
+            if m.startswith(("jax.", "advntr_tpu.", "bench."))]
 """
 
 
@@ -58,14 +63,23 @@ def test_imports_and_genotypes_without_jax(tmp_path):
     assert res.stdout.strip().splitlines()[-1] == "['301645', '2/5']"
 
 
+FORBIDDEN_IMPORT = re.compile(
+    r"^\s*(from|import)\s+(jax|bench|advntr_tpu)(\.|\s|$)", re.M)
+
+
 def test_sources_never_import_jax():
+    """No source of the port, nor chip_smoke.py, imports jax, the JAX
+    package or bench (``advntr_tpu_torch`` itself passes the pattern)."""
     sources = [p for p in PKG.rglob("*.py")
                if "build" not in p.relative_to(PKG).parts]
-    assert len(sources) > 10
-    offenders = [str(p) for p in sources
-                 if "import jax" in p.read_text()
-                 or "from jax" in p.read_text()]
+    assert len(sources) > 30
+    sources.append(REPO / "chip_smoke.py")
+    offenders = [(str(p), m.group(0).strip()) for p in sources
+                 for m in FORBIDDEN_IMPORT.finditer(p.read_text())]
     assert offenders == []
+    assert FORBIDDEN_IMPORT.search("from advntr_tpu.dna import encode\n")
+    assert FORBIDDEN_IMPORT.search("    import bench\n")
+    assert not FORBIDDEN_IMPORT.search("from advntr_tpu_torch import dna\n")
 
 
 def test_cuda_device_is_explicit():

@@ -1,5 +1,6 @@
 """The port's CUDA kernels (B1 forward, B2 backward walk) against their
-plain PyTorch twins on the card, at small sizes.
+plain PyTorch twins on the card, at small sizes, per locus and as groups
+of same-shape loci in one launch.
 
 Needs a CUDA device and nvcc; skips elsewhere.  On the GPU host (no jax
 there) run it without the suite's jax conftest:
@@ -13,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from advntr_tpu import dna
+from advntr_tpu_torch import dna
 from advntr_tpu_torch.ops import _kernels
 from advntr_tpu_torch.ops import viterbi_fused as vf
 from advntr_tpu_torch.ops.struct_model import TorchStructModel
@@ -115,3 +116,69 @@ def test_kernels_at_odd_shapes(cuda, units, copies):
     path, stats = vf.backward_stats(m, lengths, *want[1:])
     path_w, stats_w = vf.backward_stats_reference(m, lengths, *want[1:])
     assert torch.equal(path, path_w) and torch.equal(stats, stats_w)
+
+
+# three loci of one shape (6 bp units, 8 bp flanks, 3 copies)
+GROUP_CASES = [
+    (["CAGCAG", "CAGCAG", "CAACAG"], "ACGTTGCA", "TTACGGAT", 3),
+    (["TTGACC", "TTGACC", "TTGTCC"], "GGATCCAT", "CATGATCG", 3),
+    (["ACCGTA", "ACCGTA", "ACCGTA"], "TGCATGCA", "GATTACAG", 3),
+]
+
+
+def _group(cuda, n_reads):
+    """Three same-shape loci on the card, each with its own ragged batch
+    (row counts differ; the padding rows have length 1)."""
+    models = [TorchStructModel.from_payload(*locus_model(*case), cuda)
+              for case in GROUP_CASES]
+    batches = [_batch(case, n_reads - 3 * g, seed=40 + g)
+               for g, case in enumerate(GROUP_CASES)]
+    L = max(b.shape[1] for b, _ in batches)
+    seqs = torch.zeros(len(batches), n_reads, L, dtype=torch.int8)
+    lens = torch.ones(len(batches), n_reads, dtype=torch.int32)
+    for g, (b, ln) in enumerate(batches):
+        seqs[g, :b.shape[0], :b.shape[1]] = b
+        lens[g, :b.shape[0]] = ln
+    return models, seqs.to(cuda), lens.to(cuda)
+
+
+@pytest.mark.parametrize("origin32", [False, True])
+@pytest.mark.parametrize("n_reads", [7, 48])
+def test_grouped_forward_kernel_matches_looped_twin(cuda, n_reads, origin32):
+    models, seqs, lens = _group(cuda, n_reads)
+    stack = TorchStructModel.stack(models)
+    n0 = _kernels.LAUNCHES["forward"]
+    got = vf.fused_forward_grouped(stack, seqs, lens, origin32)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["forward"] == n0 + 1
+    for g, m in enumerate(models):
+        want = vf.fused_forward_reference(m, seqs[g], lens[g], origin32)
+        for x, w, name in zip(got, want, ("best", "bstate", "oMI", "oXH")):
+            assert x.dtype == w.dtype, name
+            assert torch.equal(x[g], w), (g, name)
+
+
+def test_grouped_backward_kernel_matches_looped_twin(cuda):
+    models, seqs, lens = _group(cuda, 33)
+    stack = TorchStructModel.stack(models)
+    planes = vf.fused_forward_grouped_reference(stack, seqs, lens)
+    n0 = _kernels.LAUNCHES["backward"]
+    path, stats = vf.backward_stats_grouped(stack, lens, *planes[1:])
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["backward"] == n0 + 1
+    for g, m in enumerate(models):
+        path_w, stats_w = vf.backward_stats_reference(
+            m, lens[g], *(x[g] for x in planes[1:]))
+        assert torch.equal(path[g], path_w), g
+        assert torch.equal(stats[g], stats_w), g
+
+
+def test_grouped_read_stats_on_card_equal_per_locus(cuda):
+    from advntr_tpu_torch.engine import device_analytics as da
+    models, seqs, lens = _group(cuda, 21)
+    grouped = da.read_stats_grouped(models, seqs, lens, return_path=True)
+    for g, m in enumerate(models):
+        one = vf.viterbi_stats_reference(m, seqs[g], lens[g],
+                                         return_path=True)
+        for k, v in one.items():
+            assert torch.equal(grouped[k][g], v), (g, k)

@@ -121,13 +121,54 @@ def test_origin_dtype_rule_matches_reference(P, nb):
 
 def test_production_locus_shape():
     """The production CSTB cell: n_states 927, P 512, C 16, nb 18, int16
-    origin planes."""
-    from bench import build_locus
-    graph, art, *_ = build_locus(150)
+    origin planes; the port's own locus and read simulation give the
+    locus and the reads of the reference's bench.py."""
+    import dataclasses
+
+    import bench
+    from advntr_tpu_torch.synthetic import (build_cstb_locus,
+                                            simulate_cstb_reads)
+    graph, art, left, right, pattern = build_cstb_locus(150)
     sm = padded_structured(graph, art, pos_bucket=128)
     tm = TorchStructModel.from_payload(art, sm, "cpu")
     assert (art.n_states, tm.P, tm.C, tm.nb) == (927, 512, 16, 18)
     assert smod.origin_params(tm.P, tm.nb)[0] == torch.int16
+    _, ref_art, ref_left, ref_right, ref_pattern = bench.build_locus(150)
+    assert (left, right, pattern) == (ref_left, ref_right, ref_pattern)
+    for f in dataclasses.fields(ref_art):
+        got, want = getattr(art, f.name), getattr(ref_art, f.name)
+        if isinstance(want, np.ndarray):
+            np.testing.assert_array_equal(got, want, err_msg=f.name)
+        else:
+            assert got == want, f.name
+    assert simulate_cstb_reads(left, pattern, right, 150, 64, seed=9) == \
+        bench.simulate_reads(left, pattern, right, 150, 64, seed=9)
+
+
+def test_stack_adds_a_group_axis():
+    """stack() of G same-shape models is each table with a leading group
+    axis, contiguous; one model stacks as views; other shapes refuse."""
+    same = [(["CAGCAG"] * 3, "ACGTTGCA", "TTACGGAT", 3),
+            (["TTGACC"] * 3, "GGATCCAT", "CATGATCG", 3),
+            (["ACCGTA"] * 3, "TGCATGCA", "GATTACAG", 3)]
+    tms = [TorchStructModel.from_payload(*locus_model(*c), "cpu")
+           for c in same]
+    stack = TorchStructModel.stack(tms)
+    assert (stack.G, stack.P, stack.nb, stack.C) == \
+        (3, tms[0].P, tms[0].nb, tms[0].C)
+    for name in smod.STACKED:
+        table = getattr(stack, name)
+        assert table.is_contiguous() and table.shape[0] == 3, name
+        for g, tm in enumerate(tms):
+            assert torch.equal(table[g], getattr(tm, name)), name
+    assert stack.suffix_last.tolist() == [tm.suffix_last for tm in tms]
+    assert stack.r_unit.tolist() == [tm.r_unit for tm in tms]
+    one = TorchStructModel.stack(tms[:1])
+    assert one.G == 1 and one.pos.data_ptr() == tms[0].pos.data_ptr()
+    assert all(getattr(one, n).is_contiguous() for n in smod.STACKED)
+    other = TorchStructModel.from_payload(*locus_model(*CASES[1]), "cpu")
+    with pytest.raises(ValueError, match="cannot stack"):
+        TorchStructModel.stack([tms[0], other])
 
 
 def test_kernel_row_order_matches_tables():
@@ -140,3 +181,20 @@ def test_kernel_row_order_matches_tables():
     blk = [n.strip() for n in enums[1].split(",") if n.strip()]
     assert pos == ["R_" + n.upper() for n in smod.POS_ROWS]
     assert blk == ["B_" + n.upper() for n in smod.BLK_ROWS]
+
+
+
+def test_kernel_limits_match_wrapper():
+    """The wrapper refuses shapes by the same limits the forward kernel is
+    compiled for: threads per CTA, units per lane of warp 0, rounds."""
+    from advntr_tpu_torch.ops import _kernels
+    csrc = Path(smod.__file__).parent.parent / "csrc"
+    src = (csrc / "viterbi_forward.cu").read_text()
+    bounds = re.search(r"__launch_bounds__\((\d+), (\d+)\)", src)
+    assert int(bounds.group(1)) == _kernels.MAX_THREADS
+    upl = int(re.search(r"constexpr int MAX_UPL = (\d+);", src).group(1))
+    assert 32 * upl == _kernels.MAX_UNITS
+    rounds = int(re.search(r"constexpr int MAX_ROUNDS = (\d+);",
+                           src).group(1))
+    assert (1 << rounds) >= _kernels.MAX_THREADS
+    assert {(csrc / name).exists() for name in _kernels.SOURCES} == {True}

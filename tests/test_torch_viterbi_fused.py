@@ -150,6 +150,84 @@ def test_grouped_read_stats_equals_per_locus():
             assert torch.equal(grouped[k][g], v), k
 
 
+# three loci of one shape (6 bp units, 8 bp flanks, 3 copies)
+GROUP_CASES = [
+    (["CAGCAG", "CAGCAG", "CAACAG"], "ACGTTGCA", "TTACGGAT", 3),
+    (["TTGACC", "TTGACC", "TTGTCC"], "GGATCCAT", "CATGATCG", 3),
+    (["ACCGTA", "ACCGTA", "ACCGTA"], "TGCATGCA", "GATTACAG", 3),
+]
+
+
+def _ragged_group():
+    """Three same-shape loci, each with its own ragged batch (different
+    reads, lengths 1..40), padded to one (G, B, L)."""
+    models = [_models(case) for case in GROUP_CASES]
+    rows = []
+    for g, case in enumerate(GROUP_CASES):
+        reads = _random_reads(case, 9 + 2 * g, seed=31 + g) + ["A", "GT"][:g]
+        rows.append([dna.encode(r) for r in reads])
+    B = max(len(r) for r in rows)
+    L = 8 * -(-max(len(c) for r in rows for c in r) // 8)
+    seqs = np.zeros((len(rows), B, L), dtype=np.int8)
+    lens = np.ones((len(rows), B), dtype=np.int32)   # padding rows: length 1
+    for g, r in enumerate(rows):
+        for b, codes in enumerate(r):
+            seqs[g, b, :len(codes)] = codes
+            lens[g, b] = len(codes)
+    return models, seqs, lens
+
+
+def test_grouped_ragged_batches_equal_per_locus_and_jax():
+    """G = 3 ragged batches through one grouped call: equal to the
+    per-locus results bit for bit, and to the reference's
+    read_stats_pallas_grouped in interpret mode under the standing
+    contract (statistics exactly, logp rtol 1e-4 / atol 1e-2)."""
+    models, seqs, lens = _ragged_group()
+    tms = [m[3] for m in models]
+    assert len({tm.shape_key() for tm in tms}) == 1
+    tseqs, tlens = torch.as_tensor(seqs), torch.as_tensor(lens)
+    grouped = tda.read_stats_grouped(tms, tseqs, tlens, return_path=True)
+    for g, tm in enumerate(tms):
+        one = tda.read_stats(tm, tseqs[g], tlens[g], return_path=True)
+        for k, v in one.items():
+            assert torch.equal(grouped[k][g], v), (g, k)
+    flats = [m[2].flat() for m in models]
+    stacked = tuple(jnp.stack([f[i] for f in flats])
+                    for i in range(len(flats[0])))
+    metas = [_meta(m[0]) for m in models]
+    stacked_meta = tuple(jnp.stack([mt[i] for mt in metas])
+                         for i in range(4))
+    ref = jda.read_stats_pallas_grouped(
+        stacked, stacked_meta, jnp.asarray(seqs), jnp.asarray(lens),
+        interpret=True)
+    np.testing.assert_allclose(grouped["logp"].numpy(),
+                               np.asarray(ref["logp"]), **LOGP_TOL)
+    for k in vf.STAT_KEYS:
+        np.testing.assert_array_equal(grouped[k].numpy(), np.asarray(ref[k]),
+                                      err_msg=k)
+
+
+def test_grouped_kernels_twins_equal_per_locus_planes():
+    """The grouped forward and walk (looped twins on the CPU) return the
+    per-locus planes, paths and statistics with a leading group axis."""
+    models, seqs, lens = _ragged_group()
+    tms = [m[3] for m in models]
+    stack = TorchStructModel.stack(tms)
+    tseqs, tlens = torch.as_tensor(seqs), torch.as_tensor(lens)
+    fwd = vf.fused_forward_grouped(stack, tseqs, tlens)
+    assert fwd[2].shape == (3, seqs.shape[2], seqs.shape[1], 2 * stack.P)
+    walk = vf.backward_stats_grouped(stack, tlens, *fwd[1:])
+    for g, tm in enumerate(tms):
+        one = vf.fused_forward(tm, tseqs[g], tlens[g])
+        for got, want in zip(fwd, one):
+            assert torch.equal(got[g], want)
+        one_walk = vf.backward_stats(tm, tlens[g], *one[1:])
+        for got, want in zip(walk, one_walk):
+            assert torch.equal(got[g], want)
+    with pytest.raises(ValueError, match=r"\(G=3, B, L\)"):
+        vf.fused_forward_grouped(stack, tseqs[:2], tlens[:2])
+
+
 def test_viterbi_batch_contract():
     """viterbi_batch returns the stats pipeline's logp and path, and the
     end state is the path's last valid column (artifact space)."""
@@ -177,13 +255,20 @@ def test_cuda_tensor_never_reaches_twin(monkeypatch):
     class FakeCuda:
         is_cuda = True
         device = tm.device
-        shape = (1, 8)
+
+        def __init__(self, shape=(1, 8)):
+            self.shape = shape
 
         def dim(self):
-            return 2
+            return len(self.shape)
+
+        def __getitem__(self, index):
+            assert index is None
+            return FakeCuda((1,) + self.shape)
 
     lengths = torch.ones(1)
-    vf.fused_forward(tm, FakeCuda(), lengths)
+    with pytest.raises(TypeError):      # the fake kernel returned nothing
+        vf.fused_forward(tm, FakeCuda(), lengths)
     assert calls == ["kernel"]
 
 
@@ -192,16 +277,21 @@ def test_kernel_wrappers_reject_mismatched_inputs():
     the kernels (and before nvcc is needed)."""
     from advntr_tpu_torch.ops import _kernels
     art, sm, pm, tm = _models(CASES[0])
-    seqs = torch.zeros(4, 16, dtype=torch.int8)
+    stack = TorchStructModel.stack([tm])
+    seqs = torch.zeros(1, 4, 16, dtype=torch.int8)
     with pytest.raises(ValueError, match="lengths"):
-        _kernels.forward(tm, seqs, torch.ones(3, dtype=torch.int32))
-    planes = torch.zeros(16, 4, 2 * tm.P, dtype=torch.int16)
-    hub = torch.zeros(16, 4, 2 * tm.nb, dtype=torch.int16)
-    ones = torch.ones(4, dtype=torch.int32)
+        _kernels.forward(stack, seqs, torch.ones(1, 3, dtype=torch.int32))
+    with pytest.raises(ValueError, match=r"\(G=1, B, L\)"):
+        _kernels.forward(stack, seqs[0], torch.ones(4, dtype=torch.int32))
+    planes = torch.zeros(1, 16, 4, 2 * tm.P, dtype=torch.int16)
+    hub = torch.zeros(1, 16, 4, 2 * tm.nb, dtype=torch.int16)
+    ones = torch.ones(1, 4, dtype=torch.int32)
     with pytest.raises(ValueError, match="do not fit"):
-        _kernels.backward(tm, ones, ones, planes[..., 2:], hub)
+        _kernels.backward(stack, ones, ones, planes[..., 2:], hub)
     with pytest.raises(ValueError, match="int16 or both int32"):
-        _kernels.backward(tm, ones, ones, planes, hub.to(torch.int32))
+        _kernels.backward(stack, ones, ones, planes, hub.to(torch.int32))
+    with pytest.raises(ValueError, match="G, L, B, width"):
+        _kernels.backward(stack, ones, ones, planes[0], hub[0])
 
 
 @pytest.mark.parametrize("grouped", [False, True])
