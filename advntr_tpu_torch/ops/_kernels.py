@@ -41,6 +41,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 MAX_THREADS = 1024          # B1 runs one thread per match position
 MAX_UNITS = 128             # a lane of B1's warp 0 takes up to 4 units
+MAX_STRUCT = 12288          # B2 stages a state table of 2P + nb entries
 
 LAUNCHES = {"forward": 0, "backward": 0}
 BUILD_SECONDS: float | None = None
@@ -109,7 +110,7 @@ def build() -> dict:
     fwd.advntr_error_string.argtypes = [_I]
     fwd.advntr_error_string.restype = ctypes.c_char_p
     fn = libs["viterbi_backward.cu"].advntr_viterbi_backward
-    fn.argtypes = [_VP] * 8 + [_I] * 8 + [_VP]
+    fn.argtypes = [_VP] * 8 + [_I] * 9 + [_VP]
     fn.restype = _I
     BUILD_SECONDS = time.perf_counter() - t0
     _libs = libs
@@ -195,9 +196,10 @@ def forward(s, seqs, lengths, origin32: bool = False):
     return best, bstate, oMI, oXH
 
 
-def backward(s, lengths, bstate, oMI, oXH):
+def backward(s, lengths, bstate, oMI, oXH, return_path: bool = True):
     """Launch B2 (csrc/viterbi_backward.cu) once for the G loci of the
-    stack ``s`` on planes (G, L, B, ...).  Returns path (G, B, L) int32
+    stack ``s`` on planes (G, L, B, ...).  Returns path (G, B, L) int32,
+    or None (nothing allocated, nothing written) unless ``return_path``,
     and stats (G, B, 16) int32."""
     _require(oMI.dim() == 4 and oXH.dim() == 4,
              "origin planes must be (G, L, B, width)")
@@ -210,6 +212,9 @@ def backward(s, lengths, bstate, oMI, oXH):
     _require(oMI.dtype == oXH.dtype
              and oMI.dtype in (torch.int16, torch.int32),
              "origin planes must both be int16 or both int32")
+    _require(s.region.shape[1] <= MAX_STRUCT,
+             f"B2 takes at most {MAX_STRUCT} struct states (model has "
+             f"{s.region.shape[1]})")
     _require(lengths.shape == (G, B) and bstate.shape == (G, B)
              and oXH.device == lengths.device == bstate.device == dev,
              "lengths and bstate must be (G, B) on the planes' device")
@@ -220,15 +225,17 @@ def backward(s, lengths, bstate, oMI, oXH):
     lengths32 = lengths.to(torch.int32).contiguous()
     bstate32 = bstate.to(torch.int32).contiguous()
     oMI, oXH = oMI.contiguous(), oXH.contiguous()
-    path = torch.empty(G, B, L, dtype=torch.int32, device=dev)
+    path = None
+    if return_path:
+        path = torch.empty(G, B, L, dtype=torch.int32, device=dev)
     stats = torch.empty(G, B, 16, dtype=torch.int32, device=dev)
-    if B == 0 or L == 0:
+    if B == 0:
         return path, stats
     code = lib.advntr_viterbi_backward(
         _ptr(lengths32), _ptr(bstate32), _ptr(oMI), _ptr(oXH),
-        _ptr(s.region), _ptr(s.unit), _ptr(path), _ptr(stats),
-        G, B, L, s.P, s.nb, s.region.shape[1], int(origin32), mbit,
-        _stream(dev))
+        _ptr(s.region), _ptr(s.unit), _ptr(path) if return_path else None,
+        _ptr(stats), G, B, L, s.P, s.nb, s.region.shape[1], int(origin32),
+        mbit, int(return_path), _stream(dev))
     _check(code, "viterbi_backward")
     LAUNCHES["backward"] += 1
     return path, stats

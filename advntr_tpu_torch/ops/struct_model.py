@@ -105,6 +105,9 @@ class TorchStructModel:
     region: torch.Tensor          # (2P+nb,) int32 per struct index
     unit: torch.Tensor            # (2P+nb,) int32 per struct index
     struct_to_art: torch.Tensor   # (2P+nb,) int64
+    # this model as a group of one, kept by ``as_stack``
+    _stack: "StructModelStack | None" = dataclasses.field(
+        default=None, repr=False, compare=False)
 
     @classmethod
     def from_payload(cls, art, sm, device) -> "TorchStructModel":
@@ -158,6 +161,14 @@ class TorchStructModel:
         """Models with equal keys share kernel shapes and stack in a group."""
         return (self.P, self.nb, self.C, self.struct_to_art.shape[0],
                 self.Wd.shape[0], self.Wu.shape[0])
+
+    def as_stack(self) -> "StructModelStack":
+        """This model as a group of one, made at the first call and kept:
+        its tables are views, and the two (1,) scalar tensors reach the
+        device once and not at every call."""
+        if self._stack is None:
+            self._stack = TorchStructModel.stack([self])
+        return self._stack
 
     @staticmethod
     def stack(models) -> "StructModelStack":

@@ -10,8 +10,13 @@ carry it, both hand-written CUDA C++ (``csrc/``):
   packed on the M half, and (L, B, 2nb) holding the I0 origins and the
   previous column's resolved hub origins.
 - ``backward_stats`` (B2): walks each read back from its end state through
-  the planes, writes the struct-space path and accumulates the genotyping
-  statistics on the way (reference hmm_utils.py:155-286 semantics).
+  the planes, accumulates the genotyping statistics on the way (reference
+  hmm_utils.py:155-286 semantics) and, when asked, writes the struct-space
+  path.  The kernel walks a window of columns a memory trip: it assumes
+  the path runs down the diagonal (M_p at column t comes from M_p-1 at
+  t-1), loads the window's origin codes side by side and keeps the columns
+  the codes confirm.  ``backward_stats_windowed_reference`` is that scheme
+  in plain PyTorch, for the tests and the smoke run.
 
 Both kernels take G same-shape loci in one launch (``*_grouped``, on a
 ``StructModelStack``); the per-locus calls are the G = 1 case of the same
@@ -308,6 +313,184 @@ def backward_stats_reference(m: TorchStructModel, lengths, bstate, oMI, oXH):
     return path, stats.to(torch.int32)
 
 
+def backward_stats_windowed_reference(m: TorchStructModel, lengths, bstate,
+                                      oMI, oXH, window: int = 32,
+                                      return_path: bool = True):
+    """The window scheme of the B2 kernel in plain PyTorch: the results of
+    ``backward_stats_reference``, reached a window of columns at a time.
+
+    From state ``cur`` at column ``t``, lane i of a window assumes a state
+    at column ``t - i`` (while the column exists): ``cur - i`` where
+    ``cur`` is a match state, the diagonal of a read that follows the
+    model, and ``cur`` itself where it is an insert state, the self-loop
+    in which a read that does not fit the model (a wrong-strand candidate)
+    spends its columns.  Each lane looks its origin up exactly as the
+    column-by-column walk does, and holds a true column of the path if
+    every lane before it found the next lane's assumed state.  The true lanes add their
+    columns' statistics; the first lane that disagrees gives the state the
+    next window starts from.  A window holds at least one true column, so
+    the result never depends on the guess.  Returns (path (B, L) or None,
+    stats (B, N_STATS))."""
+    path, stats, _ = _windowed_walk(m, lengths, bstate, oMI, oXH, window,
+                                    return_path)
+    return path, stats
+
+
+def _windowed_walk(m, lengths, bstate, oMI, oXH, window, return_path):
+    """backward_stats_windowed_reference, with the windows each read took
+    as a third result."""
+    L, B, P2 = oMI.shape
+    P, nb = P2 // 2, oXH.shape[2] // 2
+    mbit = MBIT32 if oMI.dtype == torch.int32 else MBIT16
+    dev = oMI.device
+    W = int(window)
+    if W < 1:
+        raise ValueError(f"window must be at least 1, got {window}")
+    lengths = lengths.long()
+    n = lengths[:, None]
+    lane = torch.arange(W, device=dev)[None, :]
+    rows = torch.arange(B, device=dev)[:, None]
+    z = torch.zeros(B, dtype=torch.long, device=dev)
+    cur = bstate.long()
+    # columns at and past a read's end hold its end state and count nothing
+    t = lengths.clamp(max=L) - 1
+    rnext, unext = z.clone(), z.clone()
+    nm, repbp, lbp, rbp, lmt, rmt, starts, ends = (z.clone() for _ in range(8))
+    fs, ls = z + BIG, z - BIG
+    fe, le = z + BIG, z - BIG
+    n_windows = z.clone()
+    path = None
+    if return_path:
+        path = bstate.to(torch.int32)[:, None].repeat(1, L)
+
+    def lookup(plane, col, idx):
+        ok = (idx >= 0) & (idx < plane.shape[2])
+        return torch.where(
+            ok, plane[col, rows, idx.clamp(0, plane.shape[2] - 1)].long(), 0)
+
+    def low(x, mask):
+        return torch.where(mask, x, BIG).min(dim=1).values
+
+    def high(x, mask):
+        return torch.where(mask, x, -BIG).max(dim=1).values
+
+    while bool((t >= 0).any()):
+        live = (t >= 0)[:, None]
+        col = t[:, None] - lane
+        step = (cur < P).long()[:, None]
+        s = cur[:, None] - lane * step
+        in_model = ((cur >= 0) & (cur < m.region.shape[0]))[:, None]
+        active = live & (col >= 0) & ((lane == 0) | (in_model & (s >= 0)))
+        colc = col.clamp(min=0)
+        sel = torch.where(s < 2 * P, lookup(oMI, colc, s),
+                          lookup(oXH, colc, s - 2 * P))
+        m_bit = sel >= mbit
+        prev = (sel & (mbit - 1)) - 1
+        selH = lookup(oXH, colc, prev - 2 * P) - 1
+        prev = torch.where(prev >= 2 * P + nb, selH, prev)
+        # lane i confirms lane i+1 where the walk moves on from its column
+        # to the state that lane assumed
+        moves = (col <= n - 1) & (col >= 1)
+        ok = active[:, 1:] & moves[:, :-1] & (prev[:, :-1] == s[:, 1:])
+        true = active[:, :1] & torch.cat(
+            [torch.ones_like(live), ok.cumprod(dim=1).bool()], dim=1)
+
+        region = _take_or(m.region, s, 0).long()
+        unit = _take_or(m.unit, s, -1).long()
+        rn = torch.cat([rnext[:, None], region[:, :-1]], dim=1)
+        un = torch.cat([unext[:, None], unit[:, :-1]], dim=1)
+        cnt = lambda mask: (mask & true).sum(dim=1)
+
+        valid = col < n
+        is_m = (s < P) & valid
+        in_suf, in_rep, in_pre = (region == R_SUFFIX, region == R_REPEAT,
+                                  region == R_PREFIX)
+        nm += cnt(is_m)
+        repbp += cnt(in_rep & valid)
+        lbp += cnt(in_suf & valid)
+        rbp += cnt(in_pre & valid)
+        bm = is_m & m_bit
+        lmt += cnt(bm & in_suf)
+        rmt += cnt(bm & in_pre)
+
+        # end hop (bp = length, applied at column length-1)
+        egg = true & (col == n - 1) & (n >= MIN_BP_IN_REPEAT) & \
+            ((in_rep & (s >= P)) | in_suf)
+        ends += egg.sum(dim=1)
+        fe = torch.minimum(fe, low(n.expand_as(col), egg))
+        le = torch.maximum(le, high(n.expand_as(col), egg))
+
+        # hop h = col+1 (path[col] -> path[col+1])
+        h = col + 1
+        base = torch.where(in_rep, unit, -1)
+        sr = un - base
+        er = sr - in_suf.long()
+        nrep, npre = rn == R_REPEAT, rn == R_PREFIX
+        hop_us = torch.where(nrep, sr, (npre & in_suf).long()).clamp(min=0)
+        hop_ue = torch.where(nrep, er,
+                             (npre & (in_rep | in_suf)).long()).clamp(min=0)
+        hop_ok = true & (h < n)
+        cs = torch.where(hop_ok & (n - h >= MIN_BP_IN_REPEAT), hop_us, 0)
+        ce = torch.where(hop_ok & (h >= MIN_BP_IN_REPEAT), hop_ue, 0)
+        starts += cs.sum(dim=1)
+        ends += ce.sum(dim=1)
+        fs = torch.minimum(fs, low(h, cs > 0))
+        ls = torch.maximum(ls, high(h, cs > 0))
+        fe = torch.minimum(fe, low(h, ce > 0))
+        le = torch.maximum(le, high(h, ce > 0))
+
+        # start hop (hop 0, at column 0): only the starts side contributes
+        j0u0m = in_rep & (unit == 0) & (s < P)
+        s_us = torch.where(in_rep & ~j0u0m, unit + 1, in_pre.long())
+        cs0 = torch.where(true & (col == 0) & (n >= MIN_BP_IN_REPEAT),
+                          s_us, 0)
+        starts += cs0.sum(dim=1)
+        fs = torch.minimum(fs, low(torch.zeros_like(col), cs0 > 0))
+        ls = torch.maximum(ls, high(torch.zeros_like(col), cs0 > 0))
+
+        if return_path:
+            path[rows.expand_as(col)[true], col[true]] = \
+                s[true].to(torch.int32)
+        # the last true lane hands the walk on
+        n_true = true.sum(dim=1)
+        j = (n_true - 1).clamp(min=0)[:, None]
+        step = live[:, 0]
+        last = lambda x: torch.gather(x, 1, j)[:, 0]
+        cur = torch.where(step & last(moves), last(prev), cur)
+        rnext = torch.where(step, last(region), rnext)
+        unext = torch.where(step, last(unit), unext)
+        t = t - n_true
+        n_windows += step
+
+    stats = torch.stack([nm, repbp, lbp, rbp, lmt, rmt, starts, ends,
+                         fs, ls, fe, le] + [z] * (N_STATS - 12), dim=1)
+    return path, stats.to(torch.int32), n_windows
+
+
+def windows_from_path(path, lengths, P: int, n_struct: int,
+                      window: int = 32):
+    """Windows the window scheme takes per read, (B,), counted from the
+    struct-space paths (B, L) alone: a run of columns down the diagonal of
+    match states, or in one insert state, takes one window per ``window``
+    columns, and every other column starts a new run."""
+    B, L = path.shape
+    path = path.long()
+    n = lengths.long().clamp(min=0, max=L)[:, None]
+    col = torch.arange(L, device=path.device)[None, :]
+    # column c goes on the run of column c+1 (the walk runs downwards)
+    upper, lower = path[:, 1:], path[:, :-1]
+    joins = torch.where(upper < P, (upper >= 1) & (lower == upper - 1),
+                        (upper < n_struct) & (lower == upper))
+    joins = torch.cat([joins, torch.zeros_like(joins[:, :1])], dim=1)
+    inside = col < n
+    starts_run = inside & ~(joins & (col + 1 < n))
+    # number the runs from each read's last column down
+    run = starts_run.flip(1).cumsum(dim=1).flip(1) - 1
+    flat = (torch.arange(B, device=path.device)[:, None] * L + run)[inside]
+    sizes = torch.bincount(flat, minlength=B * L).reshape(B, L)
+    return ((sizes + window - 1) // window).sum(dim=1)
+
+
 def _check_group_inputs(s: StructModelStack, seqs, lengths):
     if seqs.dim() != 3 or seqs.shape[0] != s.G or \
             lengths.shape != seqs.shape[:2]:
@@ -345,34 +528,40 @@ def fused_forward_grouped_reference(s: StructModelStack, seqs, lengths,
         s, seqs, lengths)
 
 
-def backward_stats_grouped(s: StructModelStack, lengths, bstate, oMI, oXH):
+def backward_stats_grouped(s: StructModelStack, lengths, bstate, oMI, oXH,
+                           return_path: bool = True):
     """B2 for G loci on planes (G, L, B, ...): one launch of the CUDA
     kernel for CUDA tensors, the looped twin for CPU ones.  Returns path
-    (G, B, L) and stats (G, B, N_STATS)."""
+    (G, B, L), or None unless ``return_path``, and stats (G, B, N_STATS)."""
     if oMI.is_cuda:
-        return _kernels.backward(s, lengths, bstate, oMI, oXH)
+        return _kernels.backward(s, lengths, bstate, oMI, oXH, return_path)
     if oMI.device.type == "cpu":
-        return backward_stats_grouped_reference(s, lengths, bstate, oMI, oXH)
+        return backward_stats_grouped_reference(s, lengths, bstate, oMI, oXH,
+                                                return_path)
     raise ValueError(f"no backward_stats for device {oMI.device}")
 
 
 def backward_stats_grouped_reference(s: StructModelStack, lengths, bstate,
-                                     oMI, oXH):
-    return _loop_twin(backward_stats_reference, s, lengths, bstate, oMI, oXH)
+                                     oMI, oXH, return_path: bool = True):
+    path, stats = _loop_twin(backward_stats_reference, s, lengths, bstate,
+                             oMI, oXH)
+    return (path if return_path else None), stats
 
 
 def fused_forward(m: TorchStructModel, seqs, lengths, origin32: bool = False):
     """B1 for one locus: the G = 1 case of ``fused_forward_grouped``."""
     _check_inputs(m, seqs, lengths)
     return tuple(x[0] for x in fused_forward_grouped(
-        TorchStructModel.stack([m]), seqs[None], lengths[None], origin32))
+        m.as_stack(), seqs[None], lengths[None], origin32))
 
 
-def backward_stats(m: TorchStructModel, lengths, bstate, oMI, oXH):
+def backward_stats(m: TorchStructModel, lengths, bstate, oMI, oXH,
+                   return_path: bool = True):
     """B2 for one locus: the G = 1 case of ``backward_stats_grouped``."""
-    return tuple(x[0] for x in backward_stats_grouped(
-        TorchStructModel.stack([m]), lengths[None], bstate[None], oMI[None],
-        oXH[None]))
+    path, stats = backward_stats_grouped(
+        m.as_stack(), lengths[None], bstate[None], oMI[None], oXH[None],
+        return_path)
+    return (path[0] if return_path else None), stats[0]
 
 
 def finish_stats(best, stats, path=None):
@@ -399,19 +588,20 @@ def finish_stats(best, stats, path=None):
     return out
 
 
-def _pipeline(s: StructModelStack, seqs, lengths, origin32,
+def _pipeline(s: StructModelStack, seqs, lengths, origin32, return_path,
               forward=fused_forward_grouped,
               backward=backward_stats_grouped):
-    """Forward, walk and the length-1 rule for G loci: best (G, B), bstate
-    (G, B), struct-space path (G, B, L), stats (G, B, N_STATS)."""
+    """Forward and walk for G loci: best (G, B), bstate (G, B), stats
+    (G, B, N_STATS) and the struct-space path (G, B, L), which is None and
+    never written unless ``return_path``.  The walk does not move in a
+    length-1 read, so its path is its end state in every column, as the
+    reference has it (pallas_viterbi.py:836-837)."""
     if seqs.shape[-1] > MAX_COLUMNS:
         raise NotImplementedError(
             f"reads of {seqs.shape[-1]} columns need the checkpointed "
             "traceback, which is not ported yet (ROADMAP.md A9)")
     best, bstate, oMI, oXH = forward(s, seqs, lengths, origin32)
-    path, stats = backward(s, lengths, bstate, oMI, oXH)
-    # a length-1 read's path is its end state (pallas_viterbi.py:836-837)
-    path = torch.where((lengths == 1)[..., None], bstate[..., None], path)
+    path, stats = backward(s, lengths, bstate, oMI, oXH, return_path)
     return best, bstate, path, stats
 
 
@@ -428,8 +618,8 @@ def viterbi_stats_grouped(s: StructModelStack, seqs, lengths,
     """Viterbi + traceback + per-read analytics for G loci: a dict of
     (G, B) tensors, with the artifact-space paths (G, B, L) when
     ``return_path``."""
-    best, _, path_s, stats = _pipeline(s, seqs, lengths, origin32, forward,
-                                       backward)
+    best, _, path_s, stats = _pipeline(s, seqs, lengths, origin32,
+                                       return_path, forward, backward)
     return finish_stats(best, stats,
                         _art_path(s, path_s) if return_path else None)
 
@@ -440,8 +630,8 @@ def viterbi_stats(m: TorchStructModel, seqs, lengths,
     (B,) tensors, with the artifact-space path (B, L) when
     ``return_path``."""
     _check_inputs(m, seqs, lengths)
-    out = viterbi_stats_grouped(TorchStructModel.stack([m]), seqs[None],
-                                lengths[None], return_path, origin32)
+    out = viterbi_stats_grouped(m.as_stack(), seqs[None], lengths[None],
+                                return_path, origin32)
     return {k: v[0] for k, v in out.items()}
 
 
@@ -451,8 +641,8 @@ def viterbi_stats_reference(m: TorchStructModel, seqs, lengths,
     """viterbi_stats through the plain twins, on any device: what the
     kernels are held against on the card."""
     out = viterbi_stats_grouped(
-        TorchStructModel.stack([m]), seqs[None], lengths[None], return_path,
-        origin32, forward=fused_forward_grouped_reference,
+        m.as_stack(), seqs[None], lengths[None], return_path, origin32,
+        forward=fused_forward_grouped_reference,
         backward=backward_stats_grouped_reference)
     return {k: v[0] for k, v in out.items()}
 
@@ -463,7 +653,7 @@ def viterbi_batch(m: TorchStructModel, seqs, lengths,
     artifact space: the contract of viterbi_struct_batch."""
     _check_inputs(m, seqs, lengths)
     best, bstate, path_s, _ = _pipeline(
-        TorchStructModel.stack([m]), seqs[None], lengths[None], origin32)
+        m.as_stack(), seqs[None], lengths[None], origin32, return_path)
     end_state = m.struct_to_art[bstate[0].long()]
     if not return_path:
         return best[0], end_state, None

@@ -13,7 +13,8 @@ Phases (any failed check exits non-zero):
 3. kernels at the production shape (the CSTB locus, n_states 927, P 512;
    4096 simulated 150 bp reads, seed 9, padded to L=160) against their
    plain PyTorch twins on the card: B2 bit-identical on the same planes,
-   the read_stats dicts equal, logp within rtol 1e-4 / atol 1e-2, 256
+   with the path asked for and without it, and its window scheme in plain
+   PyTorch likewise; the read_stats dicts equal, logp within rtol 1e-4 / atol 1e-2, 256
    sampled paths rescoring in float64 to the optimum; also a B=5 batch and
    a ragged batch with length-1 rows; then a group of 8 same-shape panel
    loci with their own read batches (a few hundred reads each, ragged,
@@ -23,7 +24,12 @@ Phases (any failed check exits non-zero):
    twins, as reads/s, at the cell (G 1, B 4096) and, the kernels, at the
    group shape (G 8), each beside its bound: the larger of the bytes it
    must move over 3.35 TB/s and its float32 operations over 67 TFLOP/s,
-   counted from this run's inputs;
+   counted from this run's inputs; B2 also alone (one launch between two
+   events on a prebuilt stack, the L2 cache written over before each, the
+   median of 50), with the windows its reads took counted from their
+   paths, and the floor of its chain of memory trips: the windows of the
+   longest walk times one trip, measured by the same kernel on planes
+   where no guess holds (one column a trip);
    also the recruitment filter's top-M count (plain torch ops) at the
    chunk shape of a 6,719-locus panel, against the same call on the host;
 5. end to end: the port's CLI on a 24-locus, two-bucket panel (150 bp
@@ -37,6 +43,12 @@ Phases (any failed check exits non-zero):
 
 also reruns the warm panel under torch.profiler and prints its wall time,
 the device time per kernel, the device's idle share and the stage totals.
+
+    python3 chip_smoke.py --walk-source FILE[,FILE...]
+
+also builds each FILE (a CUDA source with the committed B2 kernel's C entry
+point, such as an earlier version of csrc/viterbi_backward.cu), holds it to
+the twin and times it alone in turns with the committed kernel.
 
 The last three lines are the nvidia-smi line, one JSON object of the
 kernels, and {"ok": true, "device": {...}}.
@@ -100,6 +112,27 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def launch_ms(fn, flush, iters: int = 50) -> float:
+    """Median milliseconds of one launch of ``fn``, each between its own
+    pair of events.  Before each, ``flush`` (larger than the L2 cache) is
+    written over: the kernel finds the cache as cold as after the forward
+    kernel's plane writes, and the host enqueues the launch while the
+    write runs, so the events span device time only."""
+    fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        flush.zero_()
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in pairs)
+
+
 def phase_device() -> str:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
@@ -115,7 +148,9 @@ def phase_device() -> str:
 
 
 def phase_build(kernels) -> None:
-    shutil.rmtree(kernels.BUILD_DIR, ignore_errors=True)
+    # always from the sources: drop the libraries an earlier run left
+    for lib in kernels.BUILD_DIR.glob("lib*.so"):
+        lib.unlink()
     kernels.build()
     for line in kernels.BUILD_LOG.splitlines():
         if "Compiling entry" in line or "Used" in line or "spill" in line:
@@ -165,8 +200,17 @@ def phase_kernels(dev):
         check(torch.equal(stats, stats_w),
               f"B2 stats differ from the twin on {name} planes")
         b2_err = max(b2_err, float((stats - stats_w).abs().max()))
+        none, stats_only = vf.backward_stats(m, lens, bstate, oMI, oXH,
+                                             return_path=False)
+        check(none is None and torch.equal(stats_only, stats_w),
+              f"B2 without the path differs from the twin on {name} planes")
+    path_p, stats_p = vf.backward_stats_windowed_reference(m, lens, bstate,
+                                                           oMI, oXH)
+    check(torch.equal(path_p, path_w) and torch.equal(stats_p, stats_w),
+          "the window scheme in plain PyTorch differs from the twin")
     log("B2: path and stats bit-identical to the twin on B1's planes and "
-        "on the twin's")
+        "on the twin's, with and without the path; the window scheme in "
+        "plain PyTorch likewise")
 
     # the full read_stats dict
     out = vf.viterbi_stats(m, seqs, lens, return_path=True)
@@ -203,6 +247,11 @@ def phase_kernels(dev):
               f"{name} logp")
         check(all(torch.equal(o[k], r[k]) for k in vf.STAT_KEYS + ("path",)),
               f"{name} statistics or paths differ from the plain pipeline")
+        o = vf.viterbi_stats(m, s_, l_)
+        check("path" not in o
+              and all(torch.equal(o[k], r[k]) for k in vf.STAT_KEYS),
+              f"{name} statistics without the path differ from the plain "
+              f"pipeline")
     log("small batches: B=5 and ragged (length-1 rows) equal the plain "
         "pipeline")
     return m, seqs, lens, (b1_err, b2_err, rs_err)
@@ -259,6 +308,10 @@ def phase_group(dev):
     check(_kernels.LAUNCHES["forward"] == n0["forward"] + 1
           and _kernels.LAUNCHES["backward"] == n0["backward"] + 1,
           "the group took more than one launch of each kernel")
+    none, stats_only = vf.backward_stats_grouped(stack, lens, *got[1:],
+                                                 return_path=False)
+    check(none is None and torch.equal(stats_only, walk[1]),
+          "grouped B2 without the path gives other statistics")
     for g, (m, _) in enumerate(members):
         want = vf.fused_forward_reference(m, seqs[g], lens[g])
         check(all(torch.equal(x[g], w) for x, w in zip(got, want)),
@@ -269,7 +322,8 @@ def phase_group(dev):
     log(f"group: G={GROUP} same-shape panel loci (P={stack.P}, C={stack.C}), "
         f"{min(n_rows)}-{max(n_rows)} rows each padded to {b_pad}: one "
         f"B1 and one B2 launch, best, bstate, both planes, paths and "
-        f"statistics bit-identical to the per-locus twins")
+        f"statistics (with and without the path) bit-identical to the "
+        f"per-locus twins")
     return stack, seqs, lens
 
 
@@ -292,12 +346,13 @@ def bounds_ms(stack, seqs, lens):
     # chain inputs, the extraction and the hub entries, 2 a doubling round
     b1_ops = P * (active * (31 + 2 * rounds) + frozen * 21)
     b1 = max((b1_bytes / 3.35e12, "bytes"), (b1_ops / 67e12, "operations"))
-    # the walk reads one origin code and writes one path entry per read
-    # and column, and 16 statistics per read; about 40 integer operations
-    # a column
-    b2_bytes = G * B * (L * (width + 4) + 64 + 8) + 8 * stack.region.numel()
+    # the walk as the main path runs it (no path written) reads one
+    # origin code per read and column inside the read, its length and end
+    # state and the state tables, and writes 16 statistics per read;
+    # about 40 integer operations a column
+    b2_bytes = active * width + G * B * (64 + 8) + 8 * stack.region.numel()
     b2 = max((b2_bytes / 3.35e12, "bytes"),
-             (40 * G * B * L / 67e12, "operations"))
+             (40 * active / 67e12, "operations"))
     return b1[0] * 1e3, b1[1], b2[0] * 1e3, b2[1]
 
 
@@ -308,7 +363,8 @@ def phase_timing(m, seqs, lens, group):
     runs = {
         "B1": (lambda: vf.fused_forward(m, seqs, lens),
                lambda: vf.fused_forward_reference(m, seqs, lens)),
-        "B2": (lambda: vf.backward_stats(m, lens, bstate, oMI, oXH),
+        "B2": (lambda: vf.backward_stats(m, lens, bstate, oMI, oXH,
+                                         return_path=False),
                lambda: vf.backward_stats_reference(m, lens, bstate, oMI,
                                                    oXH)),
         "read_stats": (lambda: vf.viterbi_stats(m, seqs, lens),
@@ -329,19 +385,139 @@ def phase_timing(m, seqs, lens, group):
     ms["bound"] = {"B1": cell[:2], "B2": cell[2:]}
     log(f"bound at the cell: B1 {cell[0]:.4f} ms ({cell[1]}), reached "
         f"{cell[0] / ms['B1'][0]:.4f}; B2 {cell[2]:.5f} ms ({cell[3]}), "
-        f"reached {cell[2] / ms['B2'][0]:.4f}")
+        f"held against the kernel alone below")
     # the group shape: one launch of each kernel for G loci
     stack, gseqs, glens = group
     planes = vf.fused_forward_grouped(stack, gseqs, glens)
     g1 = time_ms(lambda: vf.fused_forward_grouped(stack, gseqs, glens))
-    g2 = time_ms(lambda: vf.backward_stats_grouped(stack, glens,
-                                                   *planes[1:]))
+    g2 = time_ms(lambda: vf.backward_stats_grouped(
+        stack, glens, *planes[1:], return_path=False))
     gb = bounds_ms(stack, gseqs, glens)
     ms["group"] = {"B1": g1, "B2": g2, "B1_bound": gb[0], "B2_bound": gb[2]}
     log(f"timing group (G={stack.G}, B={gseqs.shape[1]}, L={gseqs.shape[2]}, "
         f"P={stack.P}): B1 {g1:.3f} ms (bound {gb[0]:.4f} ms, {gb[1]}), "
         f"B2 {g2:.3f} ms (bound {gb[2]:.5f} ms, {gb[3]})")
     return ms
+
+
+def phase_walk(kernels, m, seqs, lens, group, sources):
+    """B2 alone at the cell and at the group shape: its time between two
+    events with the L2 cache cold, the windows its reads took, the byte
+    bound and the floor of its chain of memory trips.  ``sources`` are
+    other CUDA sources with the same C entry point, timed in turns with
+    the committed kernel (the path asked for: an earlier version always
+    wrote it)."""
+    import ctypes
+    from advntr_tpu_torch.ops import viterbi_fused as vf
+    dev = seqs.device
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    libs = kernels.build()
+    name = "viterbi_backward.cu"
+    builds = {"committed": libs[name]}
+    jobs = [(os.path.abspath(src), kernels.BUILD_DIR / f"libwalk_alt{i}.so")
+            for i, src in enumerate(sources)]
+    if jobs:
+        kernels.compile_sources(jobs)
+    for src, out in jobs:
+        lib = ctypes.CDLL(str(out))
+        lib.advntr_viterbi_backward.argtypes = \
+            libs[name].advntr_viterbi_backward.argtypes
+        lib.advntr_viterbi_backward.restype = ctypes.c_int
+        builds[os.path.relpath(src)] = lib
+
+    def walk(build, stack, lengths, planes, return_path):
+        libs[name] = builds[build]
+        try:
+            return kernels.backward(stack, lengths, *planes, return_path)
+        finally:
+            libs[name] = builds["committed"]
+
+    gstack, gseqs, glens = group
+    shapes = {"cell": (m.as_stack(), seqs[None], lens[None]),
+              "group": (gstack, gseqs, glens)}
+    out = {}
+    for shape, (stack, q, n) in shapes.items():
+        planes = vf.fused_forward_grouped(stack, q, n)[1:]
+        G, B, L = q.shape
+        path, stats = walk("committed", stack, n, planes, True)
+        for build in list(builds)[1:]:
+            got = walk(build, stack, n, planes, True)
+            torch.cuda.synchronize()
+            check(torch.equal(got[0], path) and torch.equal(got[1], stats),
+                  f"{build} differs from the committed B2 at the {shape}")
+        windows = torch.cat([
+            vf.windows_from_path(path[g], n[g], stack.P,
+                                 stack.region.shape[1], 32)
+            for g in range(G)])
+        columns = int(n.clamp(0, L).sum())
+        res = {"windows_mean": float(windows.float().mean()),
+               "windows_max": int(windows.max()),
+               "columns_per_window": columns / max(int(windows.sum()), 1)}
+        del path, stats
+        # in turns: every build, then every build again in reverse
+        order = list(builds) + list(builds)[::-1]
+        with_path = {}
+        for build in order:
+            t = launch_ms(lambda: walk(build, stack, n, planes, True), flush)
+            with_path[build] = min(t, with_path.get(build, t))
+        res["ms_path"] = with_path.pop("committed")
+        res["ms"] = launch_ms(
+            lambda: walk("committed", stack, n, planes, False), flush)
+        res["bound_ms"] = bounds_ms(stack, q, n)[2]
+        # every code lies alone in a 32-byte sector of its plane row
+        res["sector_ms"] = columns * 32 / 3.35e12 * 1e3
+        # a launch that walks nothing: every read of length 0
+        none = torch.zeros_like(n)
+        res["empty_ms"] = launch_ms(
+            lambda: walk("committed", stack, none, planes, False), flush)
+        if shape == "cell":
+            # one trip: the same kernel on planes where two insert states
+            # are each other's origin, so no guess holds and a window is
+            # one column
+            odt = planes[1].dtype
+            loop = ((torch.arange(2 * stack.P, device=dev) ^ 1) + 1).to(odt)
+            worst = (torch.full_like(n, L),
+                     torch.full_like(planes[0], stack.P),
+                     loop.expand(G, L, B, -1).contiguous(),
+                     torch.zeros_like(planes[2]))
+            _, s_worst = walk("committed", stack, worst[0], worst[1:], False)
+            path_worst = walk("committed", stack, worst[0], worst[1:],
+                              True)[0]
+            check(int(s_worst[..., vf.S_NMATCH].max()) == 0
+                  and int(vf.windows_from_path(
+                      path_worst[0], worst[0][0], stack.P,
+                      stack.region.shape[1], 32).min()) == L,
+                  "the one-column-a-trip planes did not take a window a "
+                  "column")
+            del path_worst
+            res["trip_ms"] = launch_ms(
+                lambda: walk("committed", stack, worst[0], worst[1:], False),
+                flush) / L
+            del worst, loop
+        out[shape] = res
+        del planes
+        log(f"B2 alone at the {shape} (G={G}, B={B}, L={L}, P={stack.P}): "
+            f"{res['ms']:.4f} ms without the path, {res['ms_path']:.4f} ms "
+            f"with it (one launch between two events, L2 cold, median of "
+            f"50); windows a read: mean {res['windows_mean']:.3f}, max "
+            f"{res['windows_max']}, {res['columns_per_window']:.2f} columns "
+            f"a window; byte bound {res['bound_ms']:.5f} ms "
+            f"({res['sector_ms']:.5f} ms if each code costs its 32-byte "
+            f"sector); the same "
+            f"launch on reads of length 0 {res['empty_ms']:.4f} ms")
+        for build, t in with_path.items():
+            log(f"B2 alone at the {shape}: {build} with the path "
+                f"{t:.4f} ms")
+    trip = out["cell"]["trip_ms"]
+    for shape, res in out.items():
+        res["floor_ms"] = res["windows_max"] * trip
+        log(f"B2 chain floor at the {shape}: {res['windows_max']} trips x "
+            f"{trip * 1e3:.3f} us a trip (one column a trip at the cell: "
+            f"{trip * L_PAD:.4f} ms for {L_PAD} columns) = "
+            f"{res['floor_ms']:.4f} ms; reached "
+            f"{res['floor_ms'] / res['ms']:.3f} of it, "
+            f"{res['bound_ms'] / res['ms']:.4f} of the byte bound")
+    return out
 
 
 def phase_recruitment(dev):
@@ -525,6 +701,9 @@ def phase_end_to_end(kernels, profile: bool):
 
 def main() -> None:
     profile = "--profile" in sys.argv[1:]
+    sources = []
+    if "--walk-source" in sys.argv[1:]:
+        sources = sys.argv[sys.argv.index("--walk-source") + 1].split(",")
     smi = phase_device()
     dev = torch.device("cuda")
     from advntr_tpu_torch.ops import _kernels
@@ -532,6 +711,7 @@ def main() -> None:
     m, seqs, lens, (b1_err, b2_err, rs_err) = phase_kernels(dev)
     group = phase_group(dev)
     ms = phase_timing(m, seqs, lens, group)
+    walk = phase_walk(_kernels, m, seqs, lens, group, sources)
     del seqs, lens, group
     phase_recruitment(dev)
     launches, warm_launches = phase_end_to_end(_kernels, profile)
@@ -550,12 +730,18 @@ def main() -> None:
          "source": "advntr_tpu_torch/csrc/viterbi_backward.cu",
          "replaces": "advntr_tpu/ops/pallas_viterbi.py:766",
          "launches": launches["backward"], "max_abs_err": b2_err,
-         "ms": ms["B2"][0], "plain_ms": ms["B2"][1],
+         "ms": walk["cell"]["ms"], "plain_ms": ms["B2"][1],
          "bound_ms": ms["bound"]["B2"][0],
          "bound_by": ms["bound"]["B2"][1], "library_ms": None,
          "warm_panel_launches": warm_launches["backward"],
-         "group_ms": ms["group"]["B2"],
-         "group_bound_ms": ms["group"]["B2_bound"]},
+         "wrapper_ms": ms["B2"][0], "path_ms": walk["cell"]["ms_path"],
+         "chain_floor_ms": walk["cell"]["floor_ms"],
+         "windows_per_read": walk["cell"]["windows_mean"],
+         "group_ms": walk["group"]["ms"],
+         "group_wrapper_ms": ms["group"]["B2"],
+         "group_bound_ms": ms["group"]["B2_bound"],
+         "group_chain_floor_ms": walk["group"]["floor_ms"],
+         "group_windows_per_read": walk["group"]["windows_mean"]},
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -85,6 +85,71 @@ def test_backward_kernel_matches_twin(cuda, case):
     assert torch.equal(stats, stats_w)
 
 
+def _assert_walk_equals_twin(m, planes, return_path):
+    """The kernel, and the window scheme in plain PyTorch, against the
+    column-by-column twin on the same planes."""
+    path_w, stats_w = vf.backward_stats_reference(m, *planes)
+    n0 = _kernels.LAUNCHES["backward"]
+    path, stats = vf.backward_stats(m, *planes, return_path=return_path)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["backward"] == n0 + 1
+    assert torch.equal(stats, stats_w)
+    if return_path:
+        assert torch.equal(path, path_w)
+    else:
+        assert path is None
+    path_p, stats_p = vf.backward_stats_windowed_reference(m, *planes)
+    assert torch.equal(path_p, path_w) and torch.equal(stats_p, stats_w)
+
+
+@pytest.mark.parametrize("return_path", [True, False])
+@pytest.mark.parametrize("origin32", [False, True])
+@pytest.mark.parametrize("case", CASES)
+def test_backward_kernel_on_ragged_forward_planes(cuda, case, origin32,
+                                                  return_path):
+    """Lengths 0, 1, 2, 3 and L in one batch, on the forward twin's planes
+    (which are the reference kernel's, bit for bit:
+    tests/test_torch_viterbi_crossfeed.py)."""
+    art, sm = locus_model(*case)
+    m = TorchStructModel.from_payload(art, sm, cuda)
+    seqs, lengths = _batch(case, 45, seed=13)
+    lengths[:5] = torch.tensor([0, 1, 2, 3, seqs.shape[1]])
+    seqs, lengths = seqs.to(cuda), lengths.to(cuda)
+    _, bstate, oMI, oXH = vf.fused_forward_reference(m, seqs, lengths,
+                                                     origin32)
+    _assert_walk_equals_twin(m, (lengths, bstate, oMI, oXH), return_path)
+
+
+@pytest.mark.parametrize("return_path", [True, False])
+@pytest.mark.parametrize("dtype", [torch.int16, torch.int32])
+def test_backward_kernel_on_random_planes(cuda, dtype, return_path):
+    """Seeded random planes, every stored value in range: codes of 0 off
+    column 0, sentinels that resolve outside the row, end states outside
+    the model, and a diagonal share so that windows of every size occur."""
+    art, sm = locus_model(*CASES[0])
+    m = TorchStructModel.from_payload(art, sm, cuda)
+    P, nb, B, L = m.P, m.nb, 67, 48
+    mbit = vf.MBIT32 if dtype == torch.int32 else vf.MBIT16
+    for seed in (3, 4, 5):
+        rng = np.random.default_rng(seed)
+        top = 2 * P + 2 * nb + 3
+        oMI = rng.integers(0, top, (L, B, 2 * P))
+        diagonal = rng.random((L, B, 2 * P)) < 0.8
+        oMI = np.where(diagonal, np.arange(2 * P), oMI)
+        match = (rng.random((L, B, 2 * P)) < 0.5) & (np.arange(2 * P) < P)
+        oMI = oMI + mbit * match
+        oXH = rng.integers(0, top, (L, B, 2 * nb))
+        lengths = rng.integers(0, L + 1, B)
+        lengths[:5] = [0, 1, 2, 3, L]
+        bstate = rng.integers(-1, 2 * P + nb + 2, B)
+        bstate[5:40] = rng.integers(1, P, 35)
+        planes = (torch.as_tensor(lengths.astype(np.int32), device=cuda),
+                  torch.as_tensor(bstate.astype(np.int32), device=cuda),
+                  torch.as_tensor(oMI, device=cuda).to(dtype),
+                  torch.as_tensor(oXH, device=cuda).to(dtype))
+        _assert_walk_equals_twin(m, planes, return_path)
+
+
 def test_read_stats_on_card_equal_cpu(cuda):
     case = CASES[1]
     art, sm = locus_model(*case)
@@ -166,6 +231,9 @@ def test_grouped_backward_kernel_matches_looped_twin(cuda):
     path, stats = vf.backward_stats_grouped(stack, lens, *planes[1:])
     torch.cuda.synchronize()
     assert _kernels.LAUNCHES["backward"] == n0 + 1
+    none, stats_only = vf.backward_stats_grouped(stack, lens, *planes[1:],
+                                                 return_path=False)
+    assert none is None and torch.equal(stats_only, stats)
     for g, m in enumerate(models):
         path_w, stats_w = vf.backward_stats_reference(
             m, lens[g], *(x[g] for x in planes[1:]))

@@ -1,6 +1,7 @@
 """The port's plain model tables against the reference's Pallas packing
 (PallasStructModel.from_struct) of the same padded structured model."""
 
+import dataclasses
 import re
 from pathlib import Path
 
@@ -198,3 +199,29 @@ def test_kernel_limits_match_wrapper():
                            src).group(1))
     assert (1 << rounds) >= _kernels.MAX_THREADS
     assert {(csrc / name).exists() for name in _kernels.SOURCES} == {True}
+
+
+def test_walk_kernel_limits_match_wrapper():
+    """The wrapper refuses what the walk kernel's shared state table does
+    not hold, and the table fits the 48 KB a CTA gets without asking."""
+    from advntr_tpu_torch.ops import _kernels
+    csrc = Path(smod.__file__).parent.parent / "csrc"
+    src = (csrc / "viterbi_backward.cu").read_text()
+    table = int(re.search(r"constexpr int MAX_STRUCT = (\d+);",
+                          src).group(1))
+    assert table == _kernels.MAX_STRUCT and 4 * table <= 48 * 1024
+    assert 2 * _kernels.MAX_THREADS + _kernels.MAX_THREADS <= table
+    n_stats = int(re.search(r"constexpr int N_STATS = (\d+);",
+                            src).group(1))
+    from advntr_tpu_torch.ops import viterbi_fused as vf
+    assert n_stats == vf.N_STATS
+    art, sm = locus_model(["CAGCAG"] * 3, "ACGTTGCA", "TTACGGAT", 3)
+    tm = smod.TorchStructModel.from_payload(art, sm, "cpu")
+    stack = tm.as_stack()
+    stack = dataclasses.replace(
+        stack, region=torch.zeros(1, table + 1, dtype=torch.int32))
+    planes = torch.zeros(1, 8, 2, 2 * tm.P, dtype=torch.int16)
+    hub = torch.zeros(1, 8, 2, 2 * tm.nb, dtype=torch.int16)
+    ones = torch.ones(1, 2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="struct states"):
+        _kernels.backward(stack, ones, ones, planes, hub)

@@ -58,6 +58,49 @@ def test_backward_walk_on_jax_planes():
     np.testing.assert_array_equal(stats.numpy(), np.asarray(stats_ref))
 
 
+def test_forward_twin_planes_equal_jax_planes():
+    """The forward twin's end states and origin planes are the reference
+    kernel's, bit for bit: a walk held right on the twin's planes (as the
+    CUDA kernel is on the card, where the reference cannot run) is held
+    right on the reference's."""
+    case = CASES[1]
+    art, sm, pm, tm = _models(case)
+    _, batch, lengths = _batch(READS + _random_reads(case, 22, seed=5))
+    _, bstate, oMI4, oXH4 = pv.pallas_fused_forward(
+        pm, jnp.asarray(batch)[None], jnp.asarray(lengths)[None],
+        interpret=True)
+    twin = vf.fused_forward_reference(tm, torch.as_tensor(batch),
+                                      torch.as_tensor(lengths))
+    for got, want in zip(twin[1:], (bstate, oMI4, oXH4)):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want[0]))
+
+
+@pytest.mark.parametrize("window", [1, 8, 32])
+def test_windowed_walk_on_jax_planes(window):
+    """The window scheme on the reference forward's planes: the path and
+    statistics of the reference's own walk and of the port's
+    column-by-column walk, exactly (integers)."""
+    case = CASES[1]
+    art, sm, pm, tm = _models(case)
+    _, batch, lengths = _batch(READS + _random_reads(case, 22, seed=5))
+    B = batch.shape[0]
+    best, bstate, oMI4, oXH4 = pv.pallas_fused_forward(
+        pm, jnp.asarray(batch)[None], jnp.asarray(lengths)[None],
+        interpret=True)
+    path_ref, stats_ref = pv.pallas_backward_stats(
+        pm, jnp.asarray(lengths), bstate.reshape(B), oMI4, oXH4,
+        interpret=True)
+    planes = (torch.as_tensor(lengths), torch.as_tensor(np.array(bstate[0])),
+              torch.as_tensor(np.array(oMI4[0])),
+              torch.as_tensor(np.array(oXH4[0])))
+    path, stats = vf.backward_stats_windowed_reference(tm, *planes,
+                                                       window=window)
+    np.testing.assert_array_equal(path.numpy(), np.asarray(path_ref))
+    np.testing.assert_array_equal(stats.numpy(), np.asarray(stats_ref))
+    path_w, stats_w = vf.backward_stats_reference(tm, *planes)
+    assert torch.equal(path, path_w) and torch.equal(stats, stats_w)
+
+
 def _soak_model(rng):
     def rand_seq(n):
         return "".join(rng.choice("ACGT") for _ in range(n))

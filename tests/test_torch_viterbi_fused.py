@@ -228,6 +228,164 @@ def test_grouped_kernels_twins_equal_per_locus_planes():
         vf.fused_forward_grouped(stack, tseqs[:2], tlens[:2])
 
 
+def _ragged_planes(case, origin32=False):
+    """Planes of the forward twin for a ragged batch that holds lengths
+    0, 1, 2, 3 and L beside the test reads."""
+    art, sm, pm, tm = _models(case)
+    reads = READS + _random_reads(case, 20, seed=23)
+    _, batch, lengths = _batch(reads)
+    lengths = lengths.copy()
+    lengths[:5] = [0, 1, 2, 3, batch.shape[1]]
+    seqs, lens = torch.as_tensor(batch), torch.as_tensor(lengths)
+    _, bstate, oMI, oXH = vf.fused_forward_reference(tm, seqs, lens,
+                                                     origin32)
+    return tm, lens, bstate, oMI, oXH
+
+
+@pytest.mark.parametrize("window", [1, 8, 32])
+@pytest.mark.parametrize("case", CASES)
+def test_windowed_walk_equals_walk_on_forward_planes(case, window):
+    """The window scheme gives the column-by-column walk's path and
+    statistics exactly, on a ragged batch with lengths 0, 1, 2, 3 and L."""
+    tm, lens, bstate, oMI, oXH = _ragged_planes(case)
+    path_w, stats_w = vf.backward_stats_reference(tm, lens, bstate, oMI, oXH)
+    path, stats = vf.backward_stats_windowed_reference(
+        tm, lens, bstate, oMI, oXH, window=window)
+    assert path.dtype == path_w.dtype and stats.dtype == stats_w.dtype
+    assert torch.equal(path, path_w)
+    assert torch.equal(stats, stats_w)
+
+
+def _random_planes(tm, dtype, seed, B=24, L=40):
+    """Seeded random planes with every stored value in range: codes of 0,
+    sentinels that resolve outside the row, and a diagonal share so that
+    windows of every size occur."""
+    P, nb = tm.P, tm.nb
+    mbit = vf.MBIT32 if dtype == torch.int32 else vf.MBIT16
+    rng = np.random.default_rng(seed)
+    top = 2 * P + 2 * nb + 3
+    oMI = rng.integers(0, top, (L, B, 2 * P))
+    diagonal = rng.random((L, B, 2 * P)) < 0.7
+    oMI = np.where(diagonal, np.arange(2 * P), oMI)   # code + 1 of s - 1
+    match = (rng.random((L, B, 2 * P)) < 0.5) & (np.arange(2 * P) < P)
+    oMI = oMI + mbit * match
+    oXH = rng.integers(0, top, (L, B, 2 * nb))
+    lengths = rng.integers(0, L + 1, B)
+    lengths[:5] = [0, 1, 2, 3, L]
+    bstate = rng.integers(-1, 2 * P + nb + 2, B)
+    bstate[5:12] = rng.integers(1, P, 7)
+    return (torch.as_tensor(lengths.astype(np.int32)),
+            torch.as_tensor(bstate.astype(np.int32)),
+            torch.as_tensor(oMI).to(dtype), torch.as_tensor(oXH).to(dtype))
+
+
+@pytest.mark.parametrize("window", [1, 8, 32])
+@pytest.mark.parametrize("dtype", [torch.int16, torch.int32])
+def test_windowed_walk_equals_walk_on_random_planes(dtype, window):
+    """Random planes reach what real ones do not: codes of 0 off column 0,
+    sentinels past the row, end states outside the model."""
+    tm = _models(CASES[0])[3]
+    for seed in (3, 4):
+        planes = _random_planes(tm, dtype, seed)
+        path_w, stats_w = vf.backward_stats_reference(tm, *planes)
+        path, stats, n_windows = vf._windowed_walk(tm, *planes, window, True)
+        assert torch.equal(path, path_w)
+        assert torch.equal(stats, stats_w)
+        assert torch.equal(
+            n_windows, vf.windows_from_path(path, planes[0], tm.P,
+                                             tm.region.shape[0], window))
+        if window == 1:
+            assert torch.equal(n_windows,
+                               planes[0].long().clamp(0, path.shape[1]))
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_windows_counted_from_paths(case):
+    """windows_from_path counts the windows the scheme took, and a read
+    on the diagonal takes far fewer than it has columns."""
+    tm, lens, bstate, oMI, oXH = _ragged_planes(case)
+    for window in (8, 32):
+        path, _, n_windows = vf._windowed_walk(tm, lens, bstate, oMI, oXH,
+                                               window, True)
+        assert torch.equal(
+            n_windows, vf.windows_from_path(path, lens, tm.P,
+                                            tm.region.shape[0], window))
+    assert int(n_windows.sum()) < int(lens.sum()) // 2
+
+
+@pytest.mark.parametrize("grouped", [False, True])
+def test_walk_without_path_gives_the_same_statistics(grouped):
+    """return_path=False: the same statistics and no path, from the walk,
+    the windowed plain version and the whole pipeline."""
+    tm, lens, bstate, oMI, oXH = _ragged_planes(CASES[0])
+    if grouped:
+        stack = TorchStructModel.stack([tm, tm])
+        two = lambda x: torch.stack([x, x])
+        path, stats = vf.backward_stats_grouped(
+            stack, two(lens), two(bstate), two(oMI), two(oXH))
+        none, stats2 = vf.backward_stats_grouped(
+            stack, two(lens), two(bstate), two(oMI), two(oXH),
+            return_path=False)
+        assert path.shape == (2,) + tuple(oMI.shape[1::-1])
+    else:
+        path, stats = vf.backward_stats(tm, lens, bstate, oMI, oXH)
+        none, stats2 = vf.backward_stats(tm, lens, bstate, oMI, oXH,
+                                         return_path=False)
+        none_w, stats_w = vf.backward_stats_windowed_reference(
+            tm, lens, bstate, oMI, oXH, return_path=False)
+        assert none_w is None and torch.equal(stats_w, stats)
+    assert none is None and torch.equal(stats2, stats)
+
+
+def test_pipeline_asks_the_walk_for_a_path_only_when_needed():
+    """read_stats without return_path hands return_path=False down to the
+    walk and returns no path; viterbi_batch and return_path=True get the
+    paths, a length-1 read's being its end state in every column."""
+    art, sm, pm, tm = _models(CASES[0])
+    _, batch, lengths = _batch(READS + ["A", "G"])
+    seqs, lens = torch.as_tensor(batch), torch.as_tensor(lengths)
+    asked = []
+
+    def walk(s, lengths, bstate, oMI, oXH, return_path):
+        asked.append(return_path)
+        return vf.backward_stats_grouped(s, lengths, bstate, oMI, oXH,
+                                         return_path)
+
+    stack = tm.as_stack()
+    out = vf.viterbi_stats_grouped(stack, seqs[None], lens[None],
+                                   backward=walk)
+    with_path = vf.viterbi_stats_grouped(stack, seqs[None], lens[None],
+                                         return_path=True, backward=walk)
+    assert asked == [False, True]
+    assert "path" not in out
+    for k, v in out.items():
+        assert torch.equal(v, with_path[k]), k
+    best, end_state, path = vf.viterbi_batch(tm, seqs, lens)
+    assert torch.equal(path, with_path["path"][0])
+    ones = lens == 1
+    assert int(ones.sum()) == 2
+    assert torch.equal(path[ones], end_state[ones, None].expand(-1, path.shape[1]))
+    assert vf.viterbi_batch(tm, seqs, lens, return_path=False)[2] is None
+
+
+def test_one_model_stack_is_made_once(monkeypatch):
+    """The per-locus entry points reuse the model's own stack of one: its
+    (1,) scalar tensors are built once, not at every call."""
+    art, sm, pm, tm = _models(CASES[0])
+    stack = tm.as_stack()
+    assert tm.as_stack() is stack and stack.models == [tm]
+    assert stack.region.data_ptr() == tm.region.data_ptr()
+    seen = []
+    forward = vf.fused_forward_grouped
+    _, batch, lengths = _batch(READS[:3])
+    seqs, lens = torch.as_tensor(batch), torch.as_tensor(lengths)
+    monkeypatch.setattr(
+        vf, "fused_forward_grouped",
+        lambda s, *a, **k: (seen.append(s), forward(s, *a, **k))[1])
+    vf.fused_forward(tm, seqs, lens)
+    assert seen == [stack]
+
+
 def test_viterbi_batch_contract():
     """viterbi_batch returns the stats pipeline's logp and path, and the
     end state is the path's last valid column (artifact space)."""
