@@ -1,5 +1,6 @@
 """Command-line interface of the PyTorch/CUDA port: ``genotype`` for
-Illumina alignments (BAM/SAM/CRAM) and ``viewmodel``.
+Illumina alignments (BAM/SAM/CRAM) and, with ``-p``, for PacBio reads from
+an alignment or a FASTA/FASTQ file, and ``viewmodel``.
 
 The flag surface is the reference's (advntr_tpu/cli.py:23-116) plus an
 explicit ``--device``; flags whose paths are not ported yet exit with an
@@ -19,10 +20,10 @@ from advntr_tpu_torch import __version__
 from advntr_tpu_torch.device import DEVICES, resolve_device
 
 DEFAULT_ILLUMINA_DB = "vntr_data/hg19_selected_VNTRs_Illumina.db"
+DEFAULT_PACBIO_DB = "vntr_data/hg19_selected_VNTRs_Pacbio.db"
 
 # flag -> why it cannot run yet
 NOT_PORTED = {
-    "pacbio": "-p/--pacbio (long reads) is ROADMAP.md item A9",
     "frameshift": "-fs/--frameshift is ROADMAP.md item A10",
     "update": "-u/--update (model re-estimation) is ROADMAP.md item A10",
     "em": "--em (Baum-Welch update) is ROADMAP.md item A10",
@@ -42,8 +43,11 @@ def build_parser() -> argparse.ArgumentParser:
                     help="alignment file in SAM/BAM/CRAM format")
     io.add_argument("-r", "--reference_filename", type=str, metavar="<file>",
                     help="FASTA-formatted reference file for CRAM files")
+    io.add_argument("-f", "--fasta", type=str, metavar="<file>",
+                    help="Fasta file containing raw reads")
     io.add_argument("-p", "--pacbio", action="store_true",
-                    help="input contains PacBio reads (not ported yet)")
+                    help="input contains PacBio reads")
+    io.add_argument("--log_pacbio_reads", action="store_true")
     io.add_argument("--accuracy_filter", action="store_true",
                     help="genotype only from confidently spanning reads")
     io.add_argument("-n", "--nanopore", action="store_true",
@@ -62,6 +66,8 @@ def build_parser() -> argparse.ArgumentParser:
     alg.add_argument("-c", "--coverage", type=float, metavar="<float>",
                      help="average sequencing coverage in PCR-free sequencing")
     alg.add_argument("--haploid", action="store_true", default=False)
+    alg.add_argument("-naive", "--naive", action="store_true", default=False,
+                     help="use naive approach for PacBio reads")
 
     other = g.add_argument_group("Other options")
     other.add_argument("--device", choices=DEVICES, default="cuda",
@@ -98,17 +104,17 @@ def genotype(args) -> None:
     for flag, why in NOT_PORTED.items():
         if getattr(args, flag):
             _err("not available in advntr_tpu_torch yet: " + why)
-    if args.alignment_file is None:
-        _err("No input specified. Please specify an alignment file "
-             "(Illumina reads need BAM/SAM/CRAM)")
-    input_file = args.alignment_file
-    if not input_file.endswith(("bam", "sam", "cram")):
+    if args.alignment_file is None and args.fasta is None:
+        _err("No input specified. Please specify alignment file or fasta file")
+    input_file = args.alignment_file if args.alignment_file else args.fasta
+    input_is_alignment = input_file.endswith(("bam", "sam", "cram"))
+    if not args.pacbio and not input_is_alignment:
         _err("The input file format is not supported for Illumina. "
              "Please use BAM/SAM files.")
     if args.expansion and args.coverage is None:
         _err("Please specify the average coverage to identify the expansion")
     device = resolve_device(args.device)
-    config = Config().with_platform(False, args.nanopore)
+    config = Config().with_platform(args.pacbio, args.nanopore)
     if args.threads and args.threads > 0:
         config = dataclasses.replace(config, io_threads=args.threads)
     average_coverage = args.coverage if args.expansion else None
@@ -122,8 +128,10 @@ def genotype(args) -> None:
     else:
         logging.disable(level=logging.CRITICAL)
 
-    reference_vntrs = load_unique_vntrs_data(args.models or
-                                             DEFAULT_ILLUMINA_DB)
+    models_file = args.models
+    if models_file is None:
+        models_file = DEFAULT_PACBIO_DB if args.pacbio else DEFAULT_ILLUMINA_DB
+    reference_vntrs = load_unique_vntrs_data(models_file)
     target_vntrs = [r.id for r in reference_vntrs]
     if args.vntr_id is not None:
         target_vntrs = [int(vid) for vid in args.vntr_id.split(",")]
@@ -136,9 +144,17 @@ def genotype(args) -> None:
                               args.reference_filename, input_file,
                               config=config, out=out, device=device)
     try:
-        analyzer.find_repeat_counts_from_alignment_file(
-            input_file, accuracy_filter=args.accuracy_filter,
-            average_coverage=average_coverage)
+        if args.pacbio and input_is_alignment:
+            analyzer.find_repeat_counts_from_pacbio_alignment_file(
+                input_file, args.log_pacbio_reads, args.accuracy_filter)
+        elif args.pacbio:
+            analyzer.find_repeat_counts_from_pacbio_reads(
+                input_file, args.log_pacbio_reads, args.accuracy_filter,
+                args.naive)
+        else:
+            analyzer.find_repeat_counts_from_alignment_file(
+                input_file, accuracy_filter=args.accuracy_filter,
+                average_coverage=average_coverage)
     finally:
         analyzer.model_cache.close()
         if args.outfile:

@@ -38,6 +38,17 @@
 // A group of G same-shape loci is one launch, grid (ceil(B / 8), G), each
 // locus with its own planes and state table.
 //
+// Segments.  The planes may hold only the columns t0 .. t0 + L - 1 of the
+// reads (the checkpointed traceback, ops/viterbi_ckpt.py, has one segment's
+// planes at a time).  The walk then enters with the state each read stands
+// in at the range's last column, stops its windows at column t0, writes
+// these columns' slice of the path and leaves the state above column t0.
+// A read that ends before the range does nothing in it; one that ends in
+// it starts from its end state.  The statistics count the columns walked,
+// so they are a read's own only where the range is the whole read.
+// A model of more than MAX_STRUCT states (a long-read model) does not
+// stage its state table: region and unit are read from device memory.
+//
 // TMA, wgmma and thread block clusters have nothing to carry here: the
 // kernel uses 2 bytes per read and column at addresses that the data
 // decide, and does no matrix arithmetic.
@@ -66,22 +77,25 @@ struct BwdArgs {
   const int32_t* unit;      // (G, n_struct)
   int32_t* path;            // (G, B, L), null unless the path is asked for
   int32_t* stats;           // (G, B, N_STATS)
+  const int32_t* entry;     // (G, B) state at column t0 + L - 1, or null
+  int32_t* exit_state;      // (G, B) state above column t0, or null
   int B, L, P, nb, n_struct, mbit;
+  int t0;                   // the read column of the planes' first row
 };
 
-template <typename OT, bool WRITE_PATH>
+template <typename OT, bool WRITE_PATH, bool STAGED>
 __global__ void __launch_bounds__(32 * WARPS_PER_CTA)
 viterbi_backward_kernel(const BwdArgs a) {
   // (unit << 2) | region of every struct state of this CTA's locus
   extern __shared__ int32_t meta[];
   const int g = blockIdx.y;
-  {
-    const int32_t* region_t = a.region + (size_t)g * a.n_struct;
-    const int32_t* unit_t = a.unit + (size_t)g * a.n_struct;
+  const int32_t* region_t = a.region + (size_t)g * a.n_struct;
+  const int32_t* unit_t = a.unit + (size_t)g * a.n_struct;
+  if (STAGED) {
     for (int k = threadIdx.x; k < a.n_struct; k += blockDim.x)
       meta[k] = unit_t[k] * 4 + (region_t[k] & 3);
+    __syncthreads();
   }
-  __syncthreads();
 
   const int lane = threadIdx.x & 31;
   const int b = blockIdx.x * WARPS_PER_CTA + (threadIdx.x >> 5);
@@ -95,27 +109,30 @@ viterbi_backward_kernel(const BwdArgs a) {
   const int bstate = a.bstate[read];
   int32_t* path = WRITE_PATH ? a.path + read * L : nullptr;
 
-  // the walk starts at the read's last column; later columns hold the end
-  // state, count nothing and are never looked up
-  int t = min(len, L) - 1;
-  int cur = bstate;
+  // the walk starts at the read's last column, or at the range's where
+  // the read goes on past it; later columns hold the end state, count
+  // nothing and are never looked up
+  const int t0 = a.t0, t_end = t0 + L;
+  int t = min(len, t_end) - 1;
+  int cur = a.entry ? a.entry[read] : bstate;
   if (WRITE_PATH)
-    for (int c = max(t + 1, 0) + lane; c < L; c += WINDOW) path[c] = bstate;
+    for (int c = max(t + 1, t0) + lane; c < t_end; c += WINDOW)
+      path[c - t0] = bstate;
 
   int rcarry = 0, ucarry = 0;         // region and unit of column t+1
   int nm = 0, repbp = 0, lbp = 0, rbp = 0, lmt = 0, rmt = 0;
   int starts = 0, ends = 0, fs = BIG, ls = -BIG, fe = BIG, le = -BIG;
 
-  while (t >= 0) {                      // t and cur are the warp's
+  while (t >= t0) {                     // t and cur are the warp's
     // lane i assumes a state at column t-i: cur-i down the diagonal from a
     // match state, cur itself in the self-loop of an insert state
     const int step = cur < a.P ? 1 : 0;
     const bool in_model = cur >= 0 && cur < a.n_struct;
     const int c = t - lane, s = cur - lane * step;
-    const bool active = c >= 0 && (lane == 0 || (in_model && s >= 0));
+    const bool active = c >= t0 && (lane == 0 || (in_model && s >= 0));
     int sel = 0, prev = -1;
     if (active) {
-      const size_t row = (size_t)c * a.B + b;
+      const size_t row = (size_t)(c - t0) * a.B + b;
       const OT* rXH = oXH + row * nb2;
       // an index outside the row reads 0, as the reference's masked sum does
       if (s < P2) sel = s >= 0 ? (int)oMI[row * P2 + s] : 0;
@@ -126,19 +143,22 @@ viterbi_backward_kernel(const BwdArgs a) {
     }
     const bool m_bit = sel >= a.mbit;
     // lane i confirms lane i+1 where the walk moves on from its column to
-    // the state that lane assumed; lanes 0..j hold true columns
-    const bool ok = active && lane < WINDOW - 1 && c >= 1 && in_model &&
-                    s >= step && prev == s - step;
+    // the state that lane assumed, inside the range; lanes 0..j hold true
+    // columns
+    const bool ok = active && lane < WINDOW - 1 && c >= 1 && c > t0 &&
+                    in_model && s >= step && prev == s - step;
     const int j = __ffs(~__ballot_sync(FULL, ok)) - 1;
 
-    const int packed = s >= 0 && s < a.n_struct ? meta[s] : -4;
+    int packed = -4;
+    if (s >= 0 && s < a.n_struct)
+      packed = STAGED ? meta[s] : unit_t[s] * 4 + (region_t[s] & 3);
     const int region = packed & 3, unit = packed >> 2;
     int rnext = __shfl_up_sync(FULL, region, 1);
     int unext = __shfl_up_sync(FULL, unit, 1);
     if (lane == 0) { rnext = rcarry; unext = ucarry; }
 
     if (active && lane <= j) {
-      if (WRITE_PATH) path[c] = s;
+      if (WRITE_PATH) path[c - t0] = s;
       const bool valid = c < len;
       const bool is_m = s < a.P && valid;
       const bool in_suf = region == R_SUFFIX, in_rep = region == R_REPEAT,
@@ -189,8 +209,10 @@ viterbi_backward_kernel(const BwdArgs a) {
     rcarry = __shfl_sync(FULL, region, j);
     ucarry = __shfl_sync(FULL, unit, j);
     if (t - j >= 1) cur = prev_j;
+    else if (a.exit_state) cur = __shfl_sync(FULL, s, j);  // column 0's
     t -= j + 1;
   }
+  if (a.exit_state && lane == 0) a.exit_state[read] = cur;
 
   nm = __reduce_add_sync(FULL, nm);
   repbp = __reduce_add_sync(FULL, repbp);
@@ -217,14 +239,16 @@ viterbi_backward_kernel(const BwdArgs a) {
 
 extern "C" {
 
-// Launches B2 for G loci on `stream`; returns cudaGetLastError() of the
-// launch.  `path` is written only where `write_path` is set.
+// Launches B2 for G loci on `stream` over planes that hold the columns
+// t0 .. t0 + L - 1; returns cudaGetLastError() of the launch.  `path` is
+// written only where `write_path` is set; `entry` and `exit_state` may be
+// null (the walk starts from `bstate`; the state above t0 is not kept).
 int advntr_viterbi_backward(
     const void* lengths, const void* bstate, const void* oMI, const void* oXH,
-    const void* region, const void* unit, void* path, void* stats, int G,
-    int B, int L, int P, int nb, int n_struct, int origin32, int mbit,
-    int write_path, void* stream) {
-  if (n_struct > MAX_STRUCT) return (int)cudaErrorInvalidValue;
+    const void* region, const void* unit, void* path, void* stats,
+    const void* entry, void* exit_state, int G, int B, int L, int P, int nb,
+    int n_struct, int origin32, int mbit, int write_path, int t0,
+    void* stream) {
   BwdArgs a;
   a.lengths = (const int32_t*)lengths; a.bstate = (const int32_t*)bstate;
   a.oMI = oMI; a.oXH = oXH;
@@ -232,21 +256,27 @@ int advntr_viterbi_backward(
   a.path = (int32_t*)path; a.stats = (int32_t*)stats;
   a.B = B; a.L = L; a.P = P; a.nb = nb; a.n_struct = n_struct;
   a.mbit = mbit;
+  a.entry = (const int32_t*)entry; a.exit_state = (int32_t*)exit_state;
+  a.t0 = t0;
   const int threads = 32 * WARPS_PER_CTA;
   const dim3 blocks((B + WARPS_PER_CTA - 1) / WARPS_PER_CTA, G);
-  const size_t shared = (size_t)n_struct * sizeof(int32_t);
+  const bool staged = n_struct <= MAX_STRUCT;
+  const size_t shared = staged ? (size_t)n_struct * sizeof(int32_t) : 0;
   cudaStream_t s = (cudaStream_t)stream;
+#define ADVNTR_WALK(OT, WP, ST) \
+  viterbi_backward_kernel<OT, WP, ST><<<blocks, threads, shared, s>>>(a)
+#define ADVNTR_WALK_PATH(OT, ST) \
+  do { if (write_path) ADVNTR_WALK(OT, true, ST); \
+       else ADVNTR_WALK(OT, false, ST); } while (0)
   if (origin32) {
-    if (write_path)
-      viterbi_backward_kernel<int32_t, true><<<blocks, threads, shared, s>>>(a);
-    else
-      viterbi_backward_kernel<int32_t, false><<<blocks, threads, shared, s>>>(a);
+    if (staged) ADVNTR_WALK_PATH(int32_t, true);
+    else ADVNTR_WALK_PATH(int32_t, false);
   } else {
-    if (write_path)
-      viterbi_backward_kernel<int16_t, true><<<blocks, threads, shared, s>>>(a);
-    else
-      viterbi_backward_kernel<int16_t, false><<<blocks, threads, shared, s>>>(a);
+    if (staged) ADVNTR_WALK_PATH(int16_t, true);
+    else ADVNTR_WALK_PATH(int16_t, false);
   }
+#undef ADVNTR_WALK_PATH
+#undef ADVNTR_WALK
   return (int)cudaGetLastError();
 }
 

@@ -55,6 +55,30 @@
 // runs (the last warp's lanes past P idle along on position P - 1 and
 // write nothing).  The cache pads C to 8, 16, 24 or a multiple of 32, and
 // nb = C + 2; a lane of warp 0 takes up to MAX_UPL units, so C <= 128.
+//
+// Segments.  A launch covers the columns t0 .. t0 + L - 1 of its reads.
+// It may enter with the state a launch over the columns before left
+// (floats M|I, D, I0, hub; origins Do, hubpo: the twin's loop state), may
+// leave its own exit state behind, and may run without writing planes.
+// The checkpointed traceback (ops/viterbi_ckpt.py) is built from such
+// launches.  D is kept here before its hub entry and the state holds it
+// after, so the exit applies the hub entry; an entry value that has it
+// already passes through the consumers' own hub entry unchanged.
+//
+// Wide models.  A long-read model is as wide as its longest read window:
+// P of several thousand, more units than a warp takes, more than
+// MAX_ROUNDS doubling rounds.  They take the second entry,
+// viterbi_forward_wide_kernel: still one CTA per (read, locus), but the
+// threads stride over the positions and the state, the round buffers and
+// the block ends live in a scratch buffer in device memory, which at a few
+// hundred KB a read stays in the L2 cache (P 12,288 with its origins does
+// not fit the 227 KB of shared memory a block can have).  Every exchange
+// between positions goes through that buffer with a block barrier between
+// writer and reader, and each doubling round reads one buffer and writes
+// the other, so a shift wraps at P exactly as the twin's roll does.  It is
+// the twin's column, phase by phase, and gives the first entry's planes
+// bit for bit on a model both take.  It is bound by the barriers and the
+// L2 round trips of its 20 to 30 phases a column, far above its bytes.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -97,7 +121,17 @@ struct FwdArgs {
   void* oXH;                   // (G, L, B, 2nb)
   float* best;                 // (G, B)
   int32_t* bstate;             // (G, B)
+  // the state the reads stand in before column t0, null before column 0:
+  // floats (G, B, 3P + 2nb) = M|I, D, I0, hub; ints (G, B, P + nb) = Do,
+  // hubpo
+  const float* entry_f;
+  const int32_t* entry_i;
+  float* exit_f;               // the state after the last column, or null
+  int32_t* exit_i;
+  float* scratch;              // wide entry: (G, B, wide_scratch_words)
   int B, L, P, nb, C, n_rounds_p, n_rounds_c, mbit;
+  int t0;                      // the read column of seqs[.., 0]
+  int planes;                  // 0: write no origin planes
   float ln05;
 };
 
@@ -213,7 +247,9 @@ __device__ __forceinline__ void unit_section(
   }
 }
 
-template <typename OT, int UPL>
+// CARRY: the launch is a segment (an entry or exit state, a first column
+// past 0, or no planes).  Whole reads compile without any of it.
+template <typename OT, int UPL, bool CARRY>
 __global__ void __launch_bounds__(1024, 1)
 viterbi_forward_kernel(const FwdArgs a) {
   const int P = a.P, nb = a.nb, C = a.C, L = a.L;
@@ -278,14 +314,26 @@ viterbi_forward_kernel(const FwdArgs a) {
 #pragma unroll
   for (int r = 0; r < MAX_ROUNDS; ++r)
     wd[r] = r < a.n_rounds_p ? Wd[r * P + p] : NEG;
-  if (is_blk) { hubs[tid] = NEG; hubpos[tid] = 0; I0ns[tid] = NEG; }
+  // the entry state of this read, or the state before column 0
+  const int SF = 3 * P + 2 * nb, SI = P + nb;
+  const float* ef = CARRY && a.entry_f ? a.entry_f + read * SF : nullptr;
+  const int32_t* ei = CARRY && a.entry_i ? a.entry_i + read * SI : nullptr;
+  const bool planes = !CARRY || a.planes != 0;
+  const int t0 = CARRY ? a.t0 : 0;
+  if (is_blk) {
+    hubs[tid] = ef ? ef[3 * P + nb + tid] : NEG;
+    hubpos[tid] = ei ? ei[P + tid] : 0;
+    I0ns[tid] = ef ? ef[3 * P + tid] : NEG;
+  }
   if (is_pos) {
     // emissions by base first, so a column's read is one coalesced load
 #pragma unroll
     for (int c = 0; c < 4; ++c)
       ems[c * P + tid] = make_float2(eM[tid * 4 + c], eI[tid * 4 + c]);
   }
-  if (is_pos) Dps[tid] = make_float2(NEG, __int_as_float(0));
+  if (is_pos)
+    Dps[tid] = ef ? make_float2(ef[2 * P + tid], __int_as_float(ei[tid]))
+                  : make_float2(NEG, __int_as_float(0));
   if (tid < C) uls[tid] = a.unit_last[(size_t)g * C + tid];
   for (int i = tid; i < a.n_rounds_c * C; i += blockDim.x) Wus[i] = Wu[i];
   for (int i = tid; i < L; i += blockDim.x) {
@@ -295,19 +343,25 @@ viterbi_forward_kernel(const FwdArgs a) {
   const int len = a.lengths[read];
   // this thread's entries of the read's plane rows, one column apart
   const size_t colMI = (size_t)a.B * 2 * P;
-  OT* pMI = (OT*)a.oMI + ((size_t)g * L * a.B + b) * 2 * P + p;
+  OT* pMI = planes
+      ? (OT*)a.oMI + ((size_t)g * L * a.B + b) * 2 * P + p : nullptr;
 
   // the DP state a thread carries from column to column
-  float vM = NEG, vI = NEG;     // M_p, I_p
-  float mnb = NEG, inb = NEG;   // the rolled sources of M_p (M_{p-1}, I_{p-1})
-  float Din = NEG;              // D_p before its hub entry, and its origin
-  int Dino = 0;
-  float i0_blk = NEG;           // I0 of p's block
+  float vM = ef ? ef[p] : NEG;            // M_p, I_p
+  float vI = ef ? ef[P + p] : NEG;
+  // the rolled sources of M_p (M_{p-1}, I_{p-1}; position 0 takes the
+  // roll's wrap)
+  float mnb = ef ? (p == 0 ? ef[2 * P - 1] : ef[p - 1]) : NEG;
+  float inb = ef ? (p == 0 ? ef[P - 1] : ef[P + p - 1]) : NEG;
+  float Din = ef ? ef[2 * P + p] : NEG;   // D_p before its hub entry
+  int Dino = ei ? ei[p] : 0;              // and its origin
+  float i0_blk = ef ? ef[3 * P + blk] : NEG;    // I0 of p's block
   __syncthreads();
 
   for (int t = 0; t < L; ++t) {
     const int base = seq_s[t];
-    const bool act = t < len;
+    const int tg = t0 + t;                // the read's column
+    const bool act = tg < len;
 
     // ---- emitting layer: sources from the previous column ----
     {
@@ -315,7 +369,7 @@ viterbi_forward_kernel(const FwdArgs a) {
       const float eMv = em.x, eIv = em.y;
       float nM, nI;
       int oM, oI;
-      if (t == 0) {
+      if (tg == 0) {
         nM = rw[R_M_START * P] + eMv; nI = rw[R_I_START * P] + eIv;
         oM = -1; oI = -1;
       } else {
@@ -344,11 +398,13 @@ viterbi_forward_kernel(const FwdArgs a) {
         pick(w, ow, NEG, o5);
         nI = eIv + w; oI = ow;
       }
-      if (is_pos) {
-        pMI[0] = (OT)(oM + 1 + (base == expb ? a.mbit : 0));
-        pMI[P] = (OT)(oI + 1);
+      if (planes) {
+        if (is_pos) {
+          pMI[0] = (OT)(oM + 1 + (base == expb ? a.mbit : 0));
+          pMI[P] = (OT)(oI + 1);
+        }
+        pMI += colMI;
       }
-      pMI += colMI;
       if (act) {
         vM = nM; vI = nI;
         if (is_pos) MIs[tid] = make_float2(nM, nI);
@@ -360,7 +416,7 @@ viterbi_forward_kernel(const FwdArgs a) {
       const float e0 = eI0[tid * 4 + base];
       float v0;
       int o0;
-      if (t == 0) {
+      if (tg == 0) {
         v0 = blkt[B_I0_START * nb + tid] + e0; o0 = -1;
       } else {
         v0 = I0ns[tid] + blkt[B_I0_I * nb + tid]; o0 = 2 * P + tid;
@@ -368,12 +424,18 @@ viterbi_forward_kernel(const FwdArgs a) {
              2 * P + nb + tid);
         v0 = e0 + v0;
       }
-      OT* pXH = (OT*)a.oXH + (((size_t)g * L + t) * a.B + b) * 2 * nb + tid;
-      pXH[0] = (OT)(o0 + 1);
-      pXH[nb] = (OT)(hubpos[tid] + 1);
+      if (planes) {
+        OT* pXH =
+            (OT*)a.oXH + (((size_t)g * L + t) * a.B + b) * 2 * nb + tid;
+        pXH[0] = (OT)(o0 + 1);
+        pXH[nb] = (OT)(hubpos[tid] + 1);
+      }
       if (act) I0ns[tid] = v0;
     }
-    if (!act) continue;     // length freeze: the state stays as it is
+    if (!act) {             // length freeze: the state stays as it is
+      if (!planes) break;   // and nothing is left to write
+      continue;
+    }
     __syncthreads();        // new M|I and I0 visible
 
     // ---- delete chain: D_j = max(D_{j-1} + dd_j, b_j), by doubling ----
@@ -441,16 +503,371 @@ viterbi_forward_kernel(const FwdArgs a) {
     warp_first_max(v, i);
     if (lane == 0) { a.best[read] = v; a.bstate[read] = i; }
   }
+
+  // ---- the exit state: D takes its hub entry here ----
+  if (CARRY && a.exit_f) {
+    float* xf = a.exit_f + read * SF;
+    int32_t* xi = a.exit_i + read * SI;
+    if (is_pos) {
+      float dc = Din;
+      int dco = Dino;
+      pick(dc, dco, hubs[blk] + hub_d, hubsent);
+      xf[tid] = vM; xf[P + tid] = vI;
+      xf[2 * P + tid] = dc; xi[tid] = dco;
+    }
+    if (is_blk) {
+      xf[3 * P + tid] = I0ns[tid];
+      xf[3 * P + nb + tid] = hubs[tid];
+      xi[P + tid] = hubpos[tid];
+    }
+  }
+}
+
+// ---- the wide entry ------------------------------------------------------
+
+constexpr int WIDE_THREADS = 1024;
+
+// floats of scratch a read takes: M|I twice, D and Do, two round buffers
+// and the block ends as (value, origin) pairs, I0 twice, hub and hubpo,
+// two unit-chain buffers of pairs
+__host__ __device__ inline size_t wide_scratch_words(int P, int nb, int C) {
+  return 12 * (size_t)P + 4 * (size_t)nb + 4 * (size_t)C;
+}
+
+struct Pair { float v; int o; };   // 8 bytes, stored as one word
+
+__device__ __forceinline__ Pair load_pair(const float2* p) {
+  const float2 w = *p;
+  return Pair{w.x, __float_as_int(w.y)};
+}
+
+__device__ __forceinline__ void store_pair(float2* p, float v, int o) {
+  *p = make_float2(v, __int_as_float(o));
+}
+
+// first max over the block of (value, index) with a payload: every thread
+// returns the winner's value, index and payload
+__device__ __forceinline__ void block_first_max(float& v, int& i, int& o,
+                                                float* redv, int* redi,
+                                                int* redo) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int off = 16; off > 0; off >>= 1) {
+    const float v2 = __shfl_down_sync(FULL, v, off);
+    const int i2 = __shfl_down_sync(FULL, i, off);
+    const int o2 = __shfl_down_sync(FULL, o, off);
+    if (v2 > v || (v2 == v && i2 < i)) { v = v2; i = i2; o = o2; }
+  }
+  if (lane == 0) { redv[warp] = v; redi[warp] = i; redo[warp] = o; }
+  __syncthreads();
+  if (warp == 0) {
+    const int n_warps = (blockDim.x + 31) >> 5;
+    v = lane < n_warps ? redv[lane] : -INFINITY;
+    i = lane < n_warps ? redi[lane] : 0x7fffffff;
+    o = lane < n_warps ? redo[lane] : 0;
+    for (int off = 16; off > 0; off >>= 1) {
+      const float v2 = __shfl_down_sync(FULL, v, off);
+      const int i2 = __shfl_down_sync(FULL, i, off);
+      const int o2 = __shfl_down_sync(FULL, o, off);
+      if (v2 > v || (v2 == v && i2 < i)) { v = v2; i = i2; o = o2; }
+    }
+    if (lane == 0) { redv[32] = v; redi[32] = i; redo[32] = o; }
+  }
+  __syncthreads();
+  v = redv[32]; i = redi[32]; o = redo[32];
+  __syncthreads();          // the buffers may be written again
+}
+
+template <typename OT>
+__global__ void __launch_bounds__(WIDE_THREADS, 1)
+viterbi_forward_wide_kernel(const FwdArgs a) {
+  const int P = a.P, nb = a.nb, C = a.C, L = a.L;
+  const int b = blockIdx.x, g = blockIdx.y;
+  const int tid = threadIdx.x, nt = blockDim.x;
+
+  const float* pos = a.pos + (size_t)g * N_POS_ROWS * P;
+  const float* blkt = a.blk + (size_t)g * N_BLK_ROWS * nb;
+  const float* eM = a.eM + (size_t)g * P * 4;
+  const float* eI = a.eI + (size_t)g * P * 4;
+  const float* eI0 = a.eI0 + (size_t)g * nb * 4;
+  const float* Wd = a.Wd + (size_t)g * a.n_rounds_p * P;
+  const float* Wu = a.Wu + (size_t)g * a.n_rounds_c * C;
+  const int32_t* blk_idx = a.blk_idx + (size_t)g * P;
+  const int32_t* exp_base = a.exp_base + (size_t)g * P;
+  const int32_t* uls = a.unit_last + (size_t)g * C;
+  const int suffix_last = a.suffix_last[g];
+  const float r_unit = a.r_unit[g];
+  const float ln05 = a.ln05;
+  const size_t read = (size_t)g * a.B + b;
+  const int len = a.lengths[read];
+  const bool planes = a.planes != 0;
+
+  // this read's scratch
+  float* sc = a.scratch + read * wide_scratch_words(P, nb, C);
+  float* MIb[2] = {sc, sc + 2 * P};             // M|I, old and new
+  float* Dv = sc + 4 * P;                       // D after its hub entry
+  int* Do = (int*)(sc + 5 * P);
+  float2* Dr[2] = {(float2*)(sc + 6 * P), (float2*)(sc + 8 * P)};
+  float2* qs = (float2*)(sc + 10 * P);          // block ends
+  float* bs = sc + 12 * P;
+  float* I0b[2] = {bs, bs + nb};
+  float* hub = bs + 2 * nb;
+  int* hubpo = (int*)(bs + 3 * nb);
+  float2* us[2] = {(float2*)(bs + 4 * nb), (float2*)(bs + 4 * nb + 2 * C)};
+
+  __shared__ float redv[33];
+  __shared__ int redi[33];
+  __shared__ int redo[33];
+  extern __shared__ int8_t seq_w[];             // L: the read, clipped
+
+  const int SF = 3 * P + 2 * nb, SI = P + nb;
+  const float* ef = a.entry_f ? a.entry_f + read * SF : nullptr;
+  const int32_t* ei = a.entry_i ? a.entry_i + read * SI : nullptr;
+  for (int p = tid; p < P; p += nt) {
+    MIb[0][p] = ef ? ef[p] : NEG;
+    MIb[0][P + p] = ef ? ef[P + p] : NEG;
+    Dv[p] = ef ? ef[2 * P + p] : NEG;
+    Do[p] = ei ? ei[p] : 0;
+  }
+  for (int q = tid; q < nb; q += nt) {
+    I0b[0][q] = ef ? ef[3 * P + q] : NEG;
+    hub[q] = ef ? ef[3 * P + nb + q] : NEG;
+    hubpo[q] = ei ? ei[P + q] : 0;
+  }
+  for (int i = tid; i < L; i += nt) {
+    const int base = a.seqs[read * L + i];
+    seq_w[i] = (int8_t)(base < 0 ? 0 : (base > 3 ? 3 : base));
+  }
+  int cur = 0;                  // the buffer that holds M|I and I0
+  __syncthreads();
+
+  for (int t = 0; t < L; ++t) {
+    const int base = seq_w[t];
+    const int tg = a.t0 + t;
+    const bool act = tg < len;
+    if (!act && !planes) break;
+    const float* MI = MIb[cur];
+    const float* I0 = I0b[cur];
+    float* MIn = MIb[cur ^ 1];
+    float* I0n = I0b[cur ^ 1];
+
+    // ---- emitting layer: sources from the previous column ----
+    OT* pMI = planes
+        ? (OT*)a.oMI + (((size_t)g * L + t) * a.B + b) * 2 * P : nullptr;
+    for (int p = tid; p < P; p += nt) {
+      const int tp = p == 0 ? P - 1 : p - 1;
+      const int blk = blk_idx[p];
+      const int blkcode = 2 * P + blk, hubsent = blkcode + nb;
+      const float eMv = eM[p * 4 + base], eIv = eI[p * 4 + base];
+      float nM, nI;
+      int oM, oI;
+      if (tg == 0) {
+        nM = pos[R_M_START * P + p] + eMv;
+        nI = pos[R_I_START * P + p] + eIv;
+        oM = -1; oI = -1;
+      } else {
+        float v5 = hub[blk] + pos[R_ENT_M * P + p];
+        int o5 = hubsent;
+        pick(v5, o5, I0[blk] + pos[R_I0_M * P + p], blkcode);
+        // the roll of the concatenated M|I row: position 0 takes I_{P-1}
+        // where the others take M_{p-1}, and M_{P-1} for I_{p-1}
+        const float mnb = p == 0 ? MI[2 * P - 1] : MI[p - 1];
+        const float inb = p == 0 ? MI[P - 1] : MI[P + p - 1];
+        float v = mnb + pos[R_A_MM * P + p];
+        int o = p - 1;
+        pick(v, o, inb + pos[R_A_IM * P + p], P + p - 1);
+        pick(v, o, Dv[tp] + pos[R_A_DM * P + p], Do[tp]);
+        pick(v, o, v5, o5);
+        nM = eMv + v; oM = o;
+        float w = MI[p] + pos[R_MI * P + p];
+        int ow = p;
+        pick(w, ow, MI[P + p] + pos[R_II * P + p], P + p);
+        pick(w, ow, Dv[p] + pos[R_DI * P + p], Do[p]);
+        pick(w, ow, NEG, o5);
+        nI = eIv + w; oI = ow;
+      }
+      if (planes) {
+        pMI[p] = (OT)(oM + 1 + (base == exp_base[p] ? a.mbit : 0));
+        pMI[P + p] = (OT)(oI + 1);
+      }
+      if (act) { MIn[p] = nM; MIn[P + p] = nI; }
+    }
+    for (int q = tid; q < nb; q += nt) {
+      const float e0 = eI0[q * 4 + base];
+      float v0;
+      int o0;
+      if (tg == 0) {
+        v0 = blkt[B_I0_START * nb + q] + e0; o0 = -1;
+      } else {
+        v0 = I0[q] + blkt[B_I0_I * nb + q]; o0 = 2 * P + q;
+        pick(v0, o0, hub[q] + blkt[B_HUB_I0 * nb + q], 2 * P + nb + q);
+        v0 = e0 + v0;
+      }
+      if (planes) {
+        OT* pXH = (OT*)a.oXH + (((size_t)g * L + t) * a.B + b) * 2 * nb;
+        pXH[q] = (OT)(o0 + 1);
+        pXH[nb + q] = (OT)(hubpo[q] + 1);
+      }
+      if (act) I0n[q] = v0;
+    }
+    if (!act) continue;     // length freeze: the state stays as it is
+    cur ^= 1;
+    MI = MIn; I0 = I0n;
+    __syncthreads();        // new M|I and I0 visible
+
+    // ---- delete chain: D_j = max(D_{j-1} + dd_j, b_j), by doubling ----
+    for (int p = tid; p < P; p += nt) {
+      const int blk = blk_idx[p];
+      const float mnb = p == 0 ? MI[2 * P - 1] : MI[p - 1];
+      const float inb = p == 0 ? MI[P - 1] : MI[P + p - 1];
+      float Din = mnb + pos[R_MD * P + p];
+      int Dino = p - 1;
+      pick(Din, Dino, inb + pos[R_IDW * P + p], P + p - 1);
+      pick(Din, Dino, I0[blk] + pos[R_I0_D * P + p], 2 * P + blk);
+      store_pair(&Dr[0][p], Din, Dino);
+    }
+    int db = 0;
+    for (int r = 0; r < a.n_rounds_p; ++r) {
+      const int k = 1 << r;
+      if (k >= P) break;
+      __syncthreads();      // the round's input is whole
+      for (int p = tid; p < P; p += nt) {
+        Pair own = load_pair(&Dr[db][p]);
+        const Pair src = load_pair(&Dr[db][p >= k ? p - k : p - k + P]);
+        const float rv = src.v + Wd[(size_t)r * P + p];
+        if (rv > own.v) { own.v = rv; own.o = src.o; }
+        store_pair(&Dr[db ^ 1][p], own.v, own.o);
+      }
+      db ^= 1;
+    }
+
+    // ---- block-end extraction (a thread reads what it wrote) ----
+    for (int p = tid; p < P; p += nt) {
+      const Pair d = load_pair(&Dr[db][p]);
+      float qv = MI[p] + pos[R_XM * P + p];
+      int qo = p;
+      pick(qv, qo, MI[P + p] + pos[R_XI * P + p], P + p);
+      pick(qv, qo, d.v + pos[R_XD * P + p], d.o);
+      store_pair(&qs[p], qv, qo);
+    }
+    __syncthreads();        // block ends visible
+
+    // ---- unit-start chain, unit ends, prefix hub ----
+    for (int c = tid; c < C; c += nt) {
+      if (c == 0) {
+        const bool has = suffix_last >= 0;
+        const Pair e = load_pair(&qs[has ? suffix_last : 0]);
+        store_pair(&us[0][0], has ? e.v : 0.f, has ? e.o : 0);
+      } else {
+        const Pair e = load_pair(&qs[uls[c - 1]]);
+        store_pair(&us[0][c], e.v + ln05, e.o);
+      }
+    }
+    int ub = 0;
+    for (int r = 0; r < a.n_rounds_c; ++r) {
+      const int k = 1 << r;
+      if (k >= C) break;
+      __syncthreads();
+      for (int c = tid; c < C; c += nt) {
+        Pair own = load_pair(&us[ub][c]);
+        const Pair src = load_pair(&us[ub][c >= k ? c - k : c - k + C]);
+        const float rv = src.v + Wu[r * C + c];
+        if (rv > own.v) { own.v = rv; own.o = src.o; }
+        store_pair(&us[ub ^ 1][c], own.v, own.o);
+      }
+      ub ^= 1;
+    }
+    float pv = -INFINITY;
+    int pi = 0x7fffffff, po = 0;
+    for (int c = tid; c < C; c += nt) {
+      const Pair u = load_pair(&us[ub][c]);
+      Pair e = load_pair(&qs[uls[c]]);
+      pick(e.v, e.o, u.v + r_unit, u.o);
+      const float key = e.v + ln05;
+      if (key > pv || (key == pv && c < pi)) { pv = key; pi = c; po = e.o; }
+    }
+    block_first_max(pv, pi, po, redv, redi, redo);
+
+    // ---- new hubs: none for the suffix block, unit starts, prefix hub ----
+    for (int q = tid; q < nb; q += nt) {
+      if (q == 0) {
+        hub[0] = NEG; hubpo[0] = -1;
+      } else if (q <= C) {
+        const Pair u = load_pair(&us[ub][q - 1]);
+        hub[q] = u.v; hubpo[q] = u.o;
+      } else {
+        hub[q] = pv; hubpo[q] = po;
+      }
+    }
+    __syncthreads();        // new hubs visible
+
+    // ---- the hub entry of the delete chain ----
+    for (int p = tid; p < P; p += nt) {
+      const int blk = blk_idx[p];
+      Pair d = load_pair(&Dr[db][p]);
+      pick(d.v, d.o, hub[blk] + pos[R_HUB_D * P + p], 2 * P + nb + blk);
+      Dv[p] = d.v; Do[p] = d.o;
+    }
+    __syncthreads();        // D visible to the position above
+  }
+
+  // ---- best end score and end state (first max over 2P + nb) ----
+  const float* MI = MIb[cur];
+  const float* I0 = I0b[cur];
+  float v = -INFINITY;
+  int i = 0x7fffffff, unused = 0;
+  for (int p = tid; p < P; p += nt) {
+    first_max(v, i, MI[p] + pos[R_LE_M * P + p], p);
+    first_max(v, i, MI[P + p] + pos[R_LE_I * P + p], P + p);
+  }
+  for (int q = tid; q < nb; q += nt)
+    first_max(v, i, I0[q] + blkt[B_LE_I0 * nb + q], 2 * P + q);
+  block_first_max(v, i, unused, redv, redi, redo);
+  if (tid == 0) { a.best[read] = v; a.bstate[read] = i; }
+
+  if (a.exit_f) {
+    float* xf = a.exit_f + read * SF;
+    int32_t* xi = a.exit_i + read * SI;
+    for (int p = tid; p < P; p += nt) {
+      xf[p] = MI[p]; xf[P + p] = MI[P + p];
+      xf[2 * P + p] = Dv[p]; xi[p] = Do[p];
+    }
+    for (int q = tid; q < nb; q += nt) {
+      xf[3 * P + q] = I0[q];
+      xf[3 * P + nb + q] = hub[q];
+      xi[P + q] = hubpo[q];
+    }
+  }
+}
+
+template <typename OT>
+int launch_wide(const FwdArgs& a, int G, cudaStream_t s) {
+  const size_t smem = (size_t)a.L;
+  cudaFuncSetAttribute(viterbi_forward_wide_kernel<OT>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem);
+  const int rounded = ((a.P + 31) / 32) * 32;
+  const int threads = rounded < WIDE_THREADS ? rounded : WIDE_THREADS;
+  viterbi_forward_wide_kernel<OT><<<dim3(a.B, G), threads, smem, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <typename OT, int UPL, bool CARRY>
+int launch_carry(const FwdArgs& a, int G, size_t smem, cudaStream_t s) {
+  cudaFuncSetAttribute(viterbi_forward_kernel<OT, UPL, CARRY>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem);
+  const int threads = ((a.P + 31) / 32) * 32;
+  viterbi_forward_kernel<OT, UPL, CARRY>
+      <<<dim3(a.B, G), threads, smem, s>>>(a);
+  return (int)cudaGetLastError();
 }
 
 template <typename OT, int UPL>
 int launch(const FwdArgs& a, int G, size_t smem, cudaStream_t s) {
-  cudaFuncSetAttribute(viterbi_forward_kernel<OT, UPL>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  const int threads = ((a.P + 31) / 32) * 32;
-  viterbi_forward_kernel<OT, UPL><<<dim3(a.B, G), threads, smem, s>>>(a);
-  return (int)cudaGetLastError();
+  const bool carry = a.entry_f != nullptr || a.exit_f != nullptr ||
+                     a.t0 != 0 || a.planes == 0;
+  return carry ? launch_carry<OT, UPL, true>(a, G, smem, s)
+               : launch_carry<OT, UPL, false>(a, G, smem, s);
 }
 
 template <typename OT>
@@ -473,18 +890,37 @@ size_t advntr_forward_smem_bytes(int L, int P, int nb, int C,
                           (size_t)n_rounds_c * C + 64) + (size_t)L;
 }
 
-// Launches B1 for G loci on `stream`; returns cudaGetLastError() of the
-// launch, or cudaErrorInvalidValue for a shape the kernel does not take.
+size_t advntr_forward_wide_scratch_words(int P, int nb, int C) {
+  return wide_scratch_words(P, nb, C);
+}
+
+// Launches B1 for G loci on `stream` over the columns t0 .. t0 + L - 1;
+// returns cudaGetLastError() of the launch, or cudaErrorInvalidValue for a
+// shape the chosen entry does not take.  `wide` chooses the second entry,
+// which takes any P and C and needs `scratch`.  The entry state may be
+// null (the reads start at column 0), the exit state too (it is not
+// kept); with `planes` 0 no origin plane is written and oMI, oXH may be
+// null.
 int advntr_viterbi_forward(
     const void* seqs, const void* lengths, const void* pos, const void* blk,
     const void* eM, const void* eI, const void* eI0, const void* Wd,
     const void* Wu, const void* blk_idx, const void* exp_base,
     const void* unit_last, const void* suffix_last, const void* r_unit,
-    void* oMI, void* oXH, void* best, void* bstate, int G, int B, int L,
-    int P, int nb, int C, int n_rounds_p, int n_rounds_c, int origin32,
-    int mbit, float ln05, void* stream) {
-  if (P < 32 || P > 1024 || nb > P || C < 1 ||
-      C > 32 * MAX_UPL || C + 1 > nb || n_rounds_p > MAX_ROUNDS)
+    void* oMI, void* oXH, void* best, void* bstate, const void* entry_f,
+    const void* entry_i, void* exit_f, void* exit_i, void* scratch, int G,
+    int B, int L, int P, int nb, int C, int n_rounds_p, int n_rounds_c,
+    int origin32, int mbit, int t0, int planes, int wide, float ln05,
+    void* stream) {
+  if (wide) {
+    if (P < 1 || C < 1 || C + 1 > nb || scratch == nullptr)
+      return (int)cudaErrorInvalidValue;
+  } else if (P < 32 || P > 1024 || nb > P || C < 1 ||
+             C > 32 * MAX_UPL || C + 1 > nb || n_rounds_p > MAX_ROUNDS) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if ((entry_f == nullptr) != (entry_i == nullptr) ||
+      (exit_f == nullptr) != (exit_i == nullptr) ||
+      (planes && (oMI == nullptr || oXH == nullptr)))
     return (int)cudaErrorInvalidValue;
   FwdArgs a;
   a.seqs = (const int8_t*)seqs; a.lengths = (const int32_t*)lengths;
@@ -501,8 +937,14 @@ int advntr_viterbi_forward(
   a.B = B; a.L = L; a.P = P; a.nb = nb; a.C = C;
   a.n_rounds_p = n_rounds_p; a.n_rounds_c = n_rounds_c;
   a.mbit = mbit; a.ln05 = ln05;
-  const size_t smem = advntr_forward_smem_bytes(L, P, nb, C, n_rounds_c);
+  a.entry_f = (const float*)entry_f; a.entry_i = (const int32_t*)entry_i;
+  a.exit_f = (float*)exit_f; a.exit_i = (int32_t*)exit_i;
+  a.scratch = (float*)scratch; a.t0 = t0; a.planes = planes;
   cudaStream_t s = (cudaStream_t)stream;
+  if (wide)
+    return origin32 ? launch_wide<int32_t>(a, G, s)
+                    : launch_wide<int16_t>(a, G, s);
+  const size_t smem = advntr_forward_smem_bytes(L, P, nb, C, n_rounds_c);
   return origin32 ? launch_upl<int32_t>(a, G, smem, s)
                   : launch_upl<int16_t>(a, G, smem, s);
 }

@@ -1,7 +1,8 @@
-"""Genome-level orchestration for Illumina alignments: recruitment,
-per-locus preparation, grouped device scoring, and text/BED/VCF output.
+"""Genome-level orchestration: recruitment, per-locus preparation, device
+scoring, and text/BED/VCF output, for Illumina alignments and for long
+(PacBio) reads from an alignment or a FASTA/FASTQ file.
 
-Counterpart of advntr_tpu/engine/analyzer.py (Illumina genotype path):
+Counterpart of advntr_tpu/engine/analyzer.py (genotype paths).  Illumina:
 
 1. one pass of the unmapped reads through the k-mer recruitment filter for
    all target loci;
@@ -10,6 +11,10 @@ Counterpart of advntr_tpu/engine/analyzer.py (Illumina genotype path):
 3. same-shape loci score as groups of G on the device, one launch of each
    kernel per group, and each finished group appends to a JSONL
    checkpoint, so an interrupted run resumes where it stopped.
+
+Long reads are scored one locus at a time (each locus's model is as wide
+as its longest read window): recruitment by flank keywords, then
+``VNTRFinder.find_repeat_count_pacbio``.
 
 A failure on the device (a kernel build or launch) propagates: there is
 no per-locus fallback around dispatch or collection.  A host-side error in
@@ -29,6 +34,7 @@ import torch
 
 from advntr_tpu_torch import __version__
 from advntr_tpu_torch.config import Config, DEFAULT_CONFIG
+from advntr_tpu_torch.io import fasta
 from advntr_tpu_torch.io.bam import BamReader, get_reference_genome_style
 from advntr_tpu_torch.io.sam import open_alignment
 from advntr_tpu_torch.utils.profiler import stage_summary, time_usage
@@ -183,11 +189,12 @@ class GenomeAnalyzer:
     # ---- recruitment ------------------------------------------------------
 
     @time_usage
-    def recruit_unmapped_reads(self, alignment_file: str):
+    def recruit_unmapped_reads(self, alignment_file: str,
+                               illumina: bool = True):
         """One pass over the unmapped reads for all target loci.
         Returns {vid: [(name, seq), ...]}."""
         filt = build_recruitment_filter(
-            self.reference_vntrs, self.target_vntr_ids, short_reads=True,
+            self.reference_vntrs, self.target_vntr_ids, short_reads=illumina,
             keyword_size=self.config.keyword_size,
             min_matches=self.config.min_keyword_matches,
             max_reads_per_locus=self.config.max_reads_per_locus,
@@ -476,6 +483,59 @@ class GenomeAnalyzer:
             results[vid] = (finder.genotype_from_counts(
                 covered, flanking, n_sel, accuracy_filter,
                 average_coverage), False)
+
+    # ---- the long-read genotype workload (analyzer.py:671-716) -------------
+
+    def _genotype_pacbio_locus(self, vid, unmapped_reads, accuracy_filter,
+                               naive: bool = False, bam=None) -> None:
+        """Genotype one locus from long reads and print its row.  The walk
+        over the alignment is host work and an error in it yields the
+        locus's Error row, as in the reference; anchoring and scoring run
+        on the device, where a failure propagates."""
+        finder = self.vntr_finder[vid]
+        mapped_spanning = None
+        if bam is not None:
+            try:
+                mapped_spanning = \
+                    finder.get_spanning_reads_of_aligned_pacbio_reads(bam)
+            except Exception as error:
+                logging.error("Error genotyping VNTR %s: %s. Skipping.",
+                              vid, error)
+                self.print_genotype(vid, GenotypeResult(None, 0, 0, 0, 0),
+                                    encountered_error=True)
+                return
+        result = finder.find_repeat_count_pacbio(
+            unmapped_reads, accuracy_filter=accuracy_filter,
+            naive=naive, mapped_spanning=mapped_spanning)
+        self.print_genotype(vid, result)
+
+    def find_repeat_counts_from_pacbio_alignment_file(
+            self, alignment_file: str, log_pacbio_reads: bool = False,
+            accuracy_filter: bool = False) -> None:
+        unmapped_by_vid = self.recruit_unmapped_reads(alignment_file,
+                                                      illumina=False)
+        self._emit_header()
+        with open_alignment(alignment_file, self.ref_filename) as bam:
+            for vid in self.target_vntr_ids:
+                self._genotype_pacbio_locus(vid, unmapped_by_vid[vid],
+                                            accuracy_filter, bam=bam)
+
+    def find_repeat_counts_from_pacbio_reads(self, read_file: str,
+                                             log_pacbio_reads: bool = False,
+                                             accuracy_filter: bool = False,
+                                             naive: bool = False) -> None:
+        filt = build_recruitment_filter(
+            self.reference_vntrs, self.target_vntr_ids, short_reads=False,
+            keyword_size=self.config.keyword_size,
+            min_matches=self.config.min_keyword_matches,
+            max_reads_per_locus=self.config.max_reads_per_locus,
+            device=self.device)
+        results, sequences = filter_reads(filt, fasta.read_any(read_file))
+        self._emit_header()
+        for vid in self.target_vntr_ids:
+            reads = [(name, sequences[name])
+                     for name, _ in results.get(vid, [])]
+            self._genotype_pacbio_locus(vid, reads, accuracy_filter, naive)
 
     @staticmethod
     def _median_read_length(bam: BamReader, default: int = 150) -> int:

@@ -3,9 +3,10 @@
 Counterpart of advntr_tpu/engine/device_analytics.py.  ``read_stats``
 runs the fused kernel pair (ops/viterbi_fused.py) for one locus and
 returns only O(B) scalars; ``read_stats_grouped`` scores G same-shape
-loci with one launch of each kernel.  ``analytics_from_path`` is the plain
-path-walking oracle that the backward walk's in-kernel statistics are
-held against.
+loci with one launch of each kernel.  ``read_stats_ckpt`` is the memory-safe
+path for long lattices: the checkpointed traceback, then
+``analytics_from_path``, the plain path-walking analytics that the
+backward walk's in-kernel statistics are held against.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import torch
 
 from advntr_tpu_torch.models.graph import (K_MATCH, R_PREFIX, R_REPEAT,
                                            R_SUFFIX)
+from advntr_tpu_torch.ops import viterbi_ckpt
 from advntr_tpu_torch.ops import viterbi_fused as vf
 from advntr_tpu_torch.ops.struct_model import TorchStructModel
 from advntr_tpu_torch.ops.viterbi_fused import MIN_BP_IN_REPEAT
@@ -35,6 +37,20 @@ def read_stats_grouped(models, seqs, lengths,
     device_analytics.py:276)."""
     return vf.viterbi_stats_grouped(TorchStructModel.stack(models), seqs,
                                     lengths, return_path=return_path)
+
+
+def read_stats_ckpt(model, seqs, lengths, return_path: bool = False,
+                    segment: int = 512, origin32: bool = False) -> dict:
+    """Viterbi + analytics through the checkpointed (recompute) traceback,
+    for lattices too long for whole origin planes (counterpart of
+    read_stats_struct_ckpt, device_analytics.py:208-219): the decoded path
+    in artifact space, then the plain path analytics once over the
+    (B, L) batch."""
+    logp, _, path = viterbi_ckpt.viterbi_checkpointed(
+        model, seqs, lengths, segment=segment, return_path=True,
+        origin32=origin32)
+    return analytics_from_path(model.art_meta, logp, path, seqs, lengths,
+                               return_path=return_path)
 
 
 def flank_rates(stats: dict, accuracy_filter: bool = False) -> np.ndarray:

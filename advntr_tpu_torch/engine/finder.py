@@ -1,10 +1,13 @@
-"""Per-locus VNTR genotyping engine, Illumina reads.
+"""Per-locus VNTR genotyping engine, Illumina and long reads.
 
-Counterpart of the Illumina part of advntr_tpu/engine/finder.py: all
+Counterpart of advntr_tpu/engine/finder.py's genotype paths: all
 candidate reads of a locus (mapped, plus both orientations of unmapped)
 are encoded, padded and scored in one fused Viterbi + analytics call on
 the device; the host applies the scalar gates and the genotype model
-(engine/genotype.py).
+(engine/genotype.py).  Long reads (PacBio) are first cut to the window
+between their two flank anchors (ops/align.py) and then decoded against a
+model as wide as the longest window, through the checkpointed traceback
+where the window is longer than ``CKPT_TRACEBACK_L`` columns.
 
 Model "weights" are the numpy ``(art, sm)`` payload that
 ``build_locus_payload`` writes into ``model_bank/*.pkl.gz``, pickled with
@@ -27,6 +30,8 @@ import torch
 from advntr_tpu_torch import dna
 from advntr_tpu_torch.config import Config, DEFAULT_CONFIG
 from advntr_tpu_torch.engine.genotype import find_genotype
+from advntr_tpu_torch.engine.haplotyper import PacBioHaplotyper
+from advntr_tpu_torch.io.bam import get_reference_genome_style
 from advntr_tpu_torch.models.compiler import ModelArtifact, compile_graph
 from advntr_tpu_torch.models.graph import build_read_matcher
 from advntr_tpu_torch.models.profile import profile_for_repeats
@@ -35,7 +40,14 @@ from advntr_tpu_torch.models.struct_compiler import (StructModel,
                                                      pad_structured)
 from advntr_tpu_torch.utils.profiler import time_usage
 from advntr_tpu_torch.engine import device_analytics as da
+from advntr_tpu_torch.ops.align import anchor_probe_batch, local_align
 from advntr_tpu_torch.ops.struct_model import TorchStructModel
+
+# batches longer than this many columns take the checkpointed (recompute)
+# traceback in segments of CKPT_SEGMENT columns: whole origin planes
+# outgrow the device there (finder.py:94-97)
+CKPT_TRACEBACK_L = 2048
+CKPT_SEGMENT = 512
 
 # Slim bank payloads drop the O(n^2) artifact tables; the port needs only
 # the O(n) fields, so it reads slim and full banks alike (finder.py:115-125)
@@ -506,10 +518,16 @@ class VNTRFinder:
                               len(flanking_repeats), max_prob)
 
     def run_device(self, lm: LocusModel, batch, lengths) -> dict:
-        """Score a padded batch on the cache's device; numpy stats."""
-        stats = da.read_stats(
-            lm.model, torch.as_tensor(batch, device=self.device),
-            torch.as_tensor(lengths, device=self.device))
+        """Score a padded batch on the cache's device; numpy stats.  Long
+        lattices (multi-kb long-read windows) take the checkpointed
+        traceback (finder.py:772-781)."""
+        seqs = torch.as_tensor(batch, device=self.device)
+        lens = torch.as_tensor(lengths, device=self.device)
+        if seqs.shape[1] > CKPT_TRACEBACK_L:
+            stats = da.read_stats_ckpt(lm.model, seqs, lens,
+                                       segment=CKPT_SEGMENT)
+        else:
+            stats = da.read_stats(lm.model, seqs, lens)
         return {k: v.cpu().numpy() for k, v in stats.items()}
 
     @time_usage
@@ -593,6 +611,211 @@ class VNTRFinder:
         return self.genotype_from_counts(covered_repeats, flanking_repeats,
                                          len(selected), accuracy_filter,
                                          average_coverage)
+
+    # -- PacBio path (reference: vntr_finder.py:324-471, 534-665) ------------
+
+    def _check_flanks_align(self, read_str: str, name: str,
+                            spanning: list, length_dist: list,
+                            flank_size: int = 100) -> None:
+        """Anchor both 100bp flanks inside a long read by local alignment;
+        on success, record the trimmed VNTR+-flank window
+        (reference semantics: check_if_flanking_regions_align_to_str,
+        vntr_finder.py:324-365)."""
+        left = self.reference_vntr.left_flanking_region[-flank_size:]
+        right = self.reference_vntr.right_flanking_region[:flank_size]
+        min_score_l = len(left) * (1 - self.config.max_error_rate)
+        score_l, start_l, _ = local_align(read_str, left)
+        if score_l < min_score_l:
+            return
+        min_score_r = len(right) * (1 - self.config.max_error_rate)
+        score_r, start_r, _ = local_align(read_str, right)
+        if score_r < min_score_r:
+            return
+        if start_r < start_l:
+            return
+        spanning.append((name, read_str[start_l:start_r + flank_size]))
+        length_dist.append(start_r - (start_l + flank_size))
+
+    def get_spanning_reads_of_unaligned_pacbio_reads(self, unmapped_reads):
+        """Batched flank anchoring: both orientations of every long read are
+        aligned against both 100bp flank probes in four passes on the
+        cache's device (finder.py:1259-1295; the original adVNTR forks one
+        process per read and runs Bio.pairwise2, vntr_finder.py:423-439)."""
+        flank_size = 100
+        left = self.reference_vntr.left_flanking_region[-flank_size:]
+        right = self.reference_vntr.right_flanking_region[:flank_size]
+        min_l = len(left) * (1 - self.config.max_error_rate)
+        min_r = len(right) * (1 - self.config.max_error_rate)
+
+        names, seqs, codes = [], [], []
+        for name, seq in unmapped_reads:
+            seq = seq.upper()
+            rev = dna.revcomp(seq)
+            for s in (seq, rev):
+                names.append(name)
+                seqs.append(s)
+                codes.append(dna.encode(s))
+        spanning: list = []
+        length_dist: list = []
+        if not codes:
+            return spanning, length_dist
+        res_l = anchor_probe_batch(codes, dna.encode(left), self.device)
+        res_r = anchor_probe_batch(codes, dna.encode(right), self.device)
+        for name, s, (score_l, start_l, _), (score_r, start_r, _) in zip(
+                names, seqs, res_l, res_r):
+            if score_l < min_l or score_r < min_r:
+                continue
+            if start_r < start_l:
+                continue
+            spanning.append((name, s[start_l:start_r + flank_size]))
+            length_dist.append(start_r - (start_l + flank_size))
+        logging.info("length_distribution of unmapped spanning reads: %s",
+                     length_dist)
+        return spanning, length_dist
+
+    def get_spanning_reads_of_aligned_pacbio_reads(self, bam):
+        """Extract VNTR-spanning windows from aligned long reads by walking
+        aligned reference positions (reference semantics:
+        check_if_pacbio_mapped_read_spans_vntr, vntr_finder.py:373-420)."""
+        hmm_flank = 100
+        min_flanking_bp = 10
+        vntr_start, vntr_end = self.vntr_start, self.vntr_end
+        region_start = vntr_start - hmm_flank
+        style = get_reference_genome_style(bam.references)
+        chromosome = (self.reference_vntr.chromosome if style == "HG19"
+                      else self.reference_vntr.chromosome[3:])
+        spanning = []
+        for read in bam.fetch(chromosome, vntr_start, vntr_end):
+            positions = read.get_reference_positions()
+            if not positions:
+                continue
+            if not (positions[0] <= vntr_start - min_flanking_bp
+                    and vntr_end + min_flanking_bp < positions[-1]):
+                continue
+            read_region_start = read_region_end = None
+            left_bp = right_bp = 0
+            for read_pos, ref_pos in enumerate(
+                    read.get_reference_positions(full_length=True)):
+                if ref_pos is None:
+                    continue
+                if ref_pos > vntr_end + hmm_flank:
+                    break
+                if region_start <= ref_pos < vntr_end + hmm_flank:
+                    if region_start <= ref_pos < vntr_start:
+                        if read_region_start is None:
+                            read_region_start = read_pos
+                        left_bp += 1
+                    elif vntr_start <= ref_pos < vntr_end:
+                        pass
+                    else:
+                        if read_region_end is None:
+                            read_region_end = read_pos
+                        right_bp += 1
+            if left_bp < min_flanking_bp or right_bp < min_flanking_bp:
+                continue
+            if read_region_start is not None and read_region_end is not None \
+                    and read.seq:
+                seq = read.seq[read_region_start:read_region_end + right_bp]
+                spanning.append((read.query_name, seq))
+        return spanning
+
+    def get_dominant_copy_numbers_from_spanning_reads(
+            self, spanning_reads, accuracy_filter: bool = False):
+        """Viterbi-decode each spanning window against a max-copies model and
+        genotype the observed RU counts (reference semantics:
+        vntr_finder.py:534-585)."""
+        if len(spanning_reads) < 1:
+            logging.info("There is no spanning read")
+            return None, 0
+        max_length = 0
+        for _, seq in spanning_reads:
+            if len(seq) - 100 > max_length:
+                max_length = len(seq) - 100
+        max_copies = int(round(max_length /
+                               float(len(self.reference_vntr.pattern))))
+        max_copies = max(max_copies, 1)
+        if accuracy_filter:
+            self.minimum_left_flanking_size = \
+                self.config.accuracy_filter_min_left_flanking_size
+            self.minimum_right_flanking_size = \
+                self.config.accuracy_filter_min_right_flanking_size
+        model = self.get_model(read_length=0, copies=max_copies,
+                               flank_size=100)
+        scored, _ = self.score_reads(spanning_reads, [], read_length=0,
+                                     model=model)
+        observed = [r.repeats for r in scored if np.isfinite(r.logp)]
+        logging.info("observed repeats: %s", observed)
+        if accuracy_filter:
+            observed = _filter_by_support(
+                observed, self.config.accuracy_filter_sr_min_support)
+        return find_genotype(observed, self.is_haploid,
+                             self.config.genotype_error_rate)
+
+    def get_haplotype_copy_numbers_from_spanning_reads(self, spanning_reads):
+        """Cluster spanning reads into haplotypes, decode the consensus of
+        each (reference semantics: vntr_finder.py:588-609)."""
+        if len(spanning_reads) < 1:
+            return None
+        max_length = 0
+        for _, seq in spanning_reads:
+            if len(seq) - 100 > max_length:
+                max_length = len(seq) - 100
+        max_copies = int(round(max_length /
+                               float(len(self.reference_vntr.pattern))))
+        max_copies = min(max(max_copies, 1),
+                         2 * len(self.reference_vntr.get_repeat_segments()))
+        model = self.get_model(read_length=0, copies=max_copies,
+                               flank_size=100)
+        haplotyper = PacBioHaplotyper([seq for _, seq in spanning_reads])
+        haplotypes = haplotyper.get_error_corrected_haplotypes()
+        if not haplotypes:
+            return None
+        scored, _ = self.score_reads(
+            [], [(f"hap{i}", h) for i, h in enumerate(haplotypes)],
+            read_length=0, model=model)
+        return [r.repeats for r in scored]
+
+    def find_ru_counts_with_naive_approach(self, spanning_reads):
+        """RU count from the flank-to-flank distance of the error-corrected
+        consensus (reference semantics: vntr_finder.py:611-624)."""
+        haplotyper = PacBioHaplotyper([seq for _, seq in spanning_reads])
+        haplotypes = haplotyper.get_error_corrected_haplotypes(1)
+        if len(haplotypes) == 0:
+            return None
+        flanking_lengths: list = []
+        dummy: list = []
+        self._check_flanks_align(haplotypes[0].upper(), "consensus",
+                                 dummy, flanking_lengths)
+        self._check_flanks_align(dna.revcomp(haplotypes[0]).upper(),
+                                 "consensus", dummy, flanking_lengths)
+        if flanking_lengths:
+            ru = round(flanking_lengths[0] / len(self.reference_vntr.pattern))
+            return (ru, ru)
+        return None
+
+    def find_repeat_count_pacbio(self, unmapped_reads,
+                                 accuracy_filter: bool = False,
+                                 naive: bool = False,
+                                 mapped_spanning=None) -> GenotypeResult:
+        """PacBio genotyping from recruited unmapped reads plus the windows
+        of aligned reads (reference: vntr_finder.py:639-665).  The caller
+        walks the alignment (``get_spanning_reads_of_aligned_pacbio_reads``)
+        and hands the windows in as ``mapped_spanning``, so that an error in
+        that host walk is the caller's to report."""
+        spanning, length_dist = \
+            self.get_spanning_reads_of_unaligned_pacbio_reads(unmapped_reads)
+        if mapped_spanning:
+            spanning = list(mapped_spanning) + spanning
+        max_prob = 0
+        if naive:
+            copy_numbers = self.find_ru_counts_with_naive_approach(spanning) \
+                if spanning else None
+        else:
+            copy_numbers, max_prob = \
+                self.get_dominant_copy_numbers_from_spanning_reads(
+                    spanning, accuracy_filter)
+        return GenotypeResult(copy_numbers, len(spanning), len(spanning), 0,
+                              max_prob)
 
 
 def _filter_by_support(counts: list[int], min_support: int) -> list[int]:

@@ -10,8 +10,14 @@ after its launch, and a non-zero code raises here: a launch refused for
 its thread count or shared memory never runs, and a later synchronize
 would not report it.
 
-Both kernels take a group of G same-shape loci in one launch
-(``ops/struct_model.py::StructModelStack``); one locus is G = 1.
+Both Viterbi kernels take a group of G same-shape loci in one launch
+(``ops/struct_model.py::StructModelStack``); one locus is G = 1.  Both
+also run on a range of columns with an entry and an exit state
+(``forward_segment``, ``backward_segment``): what the checkpointed
+traceback is made of.  B1 has two entries in one source: one thread per
+match position for models of up to ``MAX_THREADS`` positions, and a wide
+entry, threads striding over the positions with their state in a scratch
+buffer, for any model; ``forward`` chooses by the model's shape.
 
 ``LAUNCHES`` counts the launches of each kernel, so a run can show that it
 went through the kernels.  ``BUILD_LOG`` holds what ``ptxas -v`` said of
@@ -36,14 +42,20 @@ from advntr_tpu_torch.ops.struct_model import (
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "build"
-SOURCES = ("viterbi_forward.cu", "viterbi_backward.cu")
+SOURCES = ("viterbi_forward.cu", "viterbi_backward.cu", "local_align.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-MAX_THREADS = 1024          # B1 runs one thread per match position
-MAX_UNITS = 128             # a lane of B1's warp 0 takes up to 4 units
-MAX_STRUCT = 12288          # B2 stages a state table of 2P + nb entries
+# B1's first entry runs one thread per match position, a lane of its warp 0
+# takes up to 4 units and its threads hold 10 rounds of weights; a model
+# past any of these takes the wide entry
+MAX_THREADS = 1024
+MAX_UNITS = 128
+MAX_ROUNDS = 10
+MAX_STRUCT = 12288          # B2 stages state tables of up to 2P + nb entries
+MAX_PROBE = 128             # local_align holds the probe four to a lane
 
-LAUNCHES = {"forward": 0, "backward": 0}
+LAUNCHES = {"forward": 0, "forward_wide": 0, "backward": 0,
+            "local_align": 0}
 BUILD_SECONDS: float | None = None
 BUILD_LOG = ""
 _libs = None
@@ -105,12 +117,17 @@ def build() -> dict:
         BUILD_LOG = compile_sources(missing)
     libs = {name: ctypes.CDLL(str(out)) for name, out in paths.items()}
     fwd = libs["viterbi_forward.cu"]
-    fwd.advntr_viterbi_forward.argtypes = [_VP] * 18 + [_I] * 10 + [_F, _VP]
+    fwd.advntr_viterbi_forward.argtypes = [_VP] * 23 + [_I] * 13 + [_F, _VP]
     fwd.advntr_viterbi_forward.restype = _I
+    fwd.advntr_forward_wide_scratch_words.argtypes = [_I] * 3
+    fwd.advntr_forward_wide_scratch_words.restype = ctypes.c_size_t
     fwd.advntr_error_string.argtypes = [_I]
     fwd.advntr_error_string.restype = ctypes.c_char_p
     fn = libs["viterbi_backward.cu"].advntr_viterbi_backward
-    fn.argtypes = [_VP] * 8 + [_I] * 9 + [_VP]
+    fn.argtypes = [_VP] * 10 + [_I] * 10 + [_VP]
+    fn.restype = _I
+    fn = libs["local_align.cu"].advntr_local_align
+    fn.argtypes = [_VP] * 5 + [_I] * 3 + [_VP]
     fn.restype = _I
     BUILD_SECONDS = time.perf_counter() - t0
     _libs = libs
@@ -154,19 +171,30 @@ def _check_stack(s, device) -> None:
              "model tables disagree with (P, nb, C)")
 
 
-def forward(s, seqs, lengths, origin32: bool = False):
-    """Launch B1 (csrc/viterbi_forward.cu) once for the G loci of the
-    stack ``s``: seqs (G, B, L), lengths (G, B), CUDA tensors.  Returns
-    best (G, B), bstate (G, B), oMI (G, L, B, 2P), oXH (G, L, B, 2nb)."""
+def takes_wide_entry(s) -> bool:
+    """Whether a model's shape is past B1's first entry."""
+    return (s.P > MAX_THREADS or s.C > MAX_UNITS
+            or s.Wd.shape[1] > MAX_ROUNDS)
+
+
+def state_widths(s) -> tuple[int, int]:
+    """Widths of a forward state's float and integer parts."""
+    return 3 * s.P + 2 * s.nb, s.P + s.nb
+
+
+def _launch_forward(s, seqs, lengths, origin32, state, t0, planes,
+                    keep_state, wide):
+    """One launch of B1 over the columns t0 .. t0 + L - 1."""
     P, nb, C = s.P, s.nb, s.C
-    if P > MAX_THREADS:
-        raise ValueError(
-            f"B1 takes at most {MAX_THREADS} match positions (model has "
-            f"P={P}); long-read models are ROADMAP item A9")
-    _require(P >= 32 and C + 2 <= nb <= P and 1 <= C <= MAX_UNITS
-             and s.Wd.shape[1] <= 10,
-             f"B1 takes 32 <= P, C <= {MAX_UNITS} and C + 2 <= nb <= P; "
-             f"got P={P}, C={C}, nb={nb}")
+    if wide is None:
+        wide = takes_wide_entry(s)
+    _require(wide or not takes_wide_entry(s),
+             f"B1's first entry takes P <= {MAX_THREADS}, C <= {MAX_UNITS} "
+             f"and {MAX_ROUNDS} rounds; got P={P}, C={C}, "
+             f"{s.Wd.shape[1]} rounds")
+    _require(C >= 1 and C + 2 <= nb and (wide or 32 <= P and nb <= P),
+             f"B1 takes C >= 1, C + 2 <= nb and, in its first entry, "
+             f"32 <= P and nb <= P; got P={P}, C={C}, nb={nb}")
     _require(seqs.dim() == 3 and seqs.shape[0] == s.G,
              f"seqs must be (G={s.G}, B, L); got {tuple(seqs.shape)}")
     G, B, L = seqs.shape
@@ -174,33 +202,75 @@ def forward(s, seqs, lengths, origin32: bool = False):
     _require(lengths.shape == (G, B) and lengths.device == dev,
              "lengths must be (G, B) on the device of seqs")
     _check_stack(s, dev)
+    wf, wi = state_widths(s)
+    if state is not None:
+        _require(state[0].shape == (G, B, wf) and state[1].shape == (G, B, wi)
+                 and state[0].dtype == torch.float32
+                 and state[1].dtype == torch.int32
+                 and state[0].device == state[1].device == dev
+                 and state[0].is_contiguous() and state[1].is_contiguous(),
+                 f"the entry state must be contiguous float32 (G, B, {wf}) "
+                 f"and int32 (G, B, {wi}) on the device of seqs")
     lib = build()["viterbi_forward.cu"]
     odt, mbit = origin_params(P, nb, origin32)
     seqs8 = seqs.to(torch.int8).contiguous()
     lengths32 = lengths.to(torch.int32).contiguous()
-    oMI = torch.empty(G, L, B, 2 * P, dtype=odt, device=dev)
-    oXH = torch.empty(G, L, B, 2 * nb, dtype=odt, device=dev)
+    oMI = oXH = None
+    if planes:
+        oMI = torch.empty(G, L, B, 2 * P, dtype=odt, device=dev)
+        oXH = torch.empty(G, L, B, 2 * nb, dtype=odt, device=dev)
     best = torch.empty(G, B, dtype=torch.float32, device=dev)
     bstate = torch.empty(G, B, dtype=torch.int32, device=dev)
+    exit_ = None
+    if keep_state:
+        exit_ = (torch.empty(G, B, wf, dtype=torch.float32, device=dev),
+                 torch.empty(G, B, wi, dtype=torch.int32, device=dev))
     if B == 0 or L == 0:
-        return best, bstate, oMI, oXH
+        _require(not keep_state, "an empty batch has no state to keep")
+        return best, bstate, oMI, oXH, exit_
+    scratch = None
+    if wide:
+        words = lib.advntr_forward_wide_scratch_words(P, nb, C)
+        scratch = torch.empty(G * B, words, dtype=torch.float32, device=dev)
+    opt = lambda x: None if x is None else _ptr(x)
     code = lib.advntr_viterbi_forward(
         _ptr(seqs8), _ptr(lengths32), _ptr(s.pos), _ptr(s.blk), _ptr(s.eM),
         _ptr(s.eI), _ptr(s.eI0), _ptr(s.Wd), _ptr(s.Wu), _ptr(s.blk_idx),
         _ptr(s.exp_base), _ptr(s.unit_last), _ptr(s.suffix_last),
-        _ptr(s.r_unit), _ptr(oMI), _ptr(oXH), _ptr(best), _ptr(bstate),
+        _ptr(s.r_unit), opt(oMI), opt(oXH), _ptr(best), _ptr(bstate),
+        opt(state and state[0]), opt(state and state[1]),
+        opt(exit_ and exit_[0]), opt(exit_ and exit_[1]), opt(scratch),
         G, B, L, P, nb, C, s.Wd.shape[1], s.Wu.shape[1],
-        int(odt == torch.int32), mbit, LN05, _stream(dev))
+        int(odt == torch.int32), mbit, int(t0), int(planes), int(wide),
+        LN05, _stream(dev))
     _check(code, "viterbi_forward")
-    LAUNCHES["forward"] += 1
-    return best, bstate, oMI, oXH
+    LAUNCHES["forward_wide" if wide else "forward"] += 1
+    return best, bstate, oMI, oXH, exit_
 
 
-def backward(s, lengths, bstate, oMI, oXH, return_path: bool = True):
-    """Launch B2 (csrc/viterbi_backward.cu) once for the G loci of the
-    stack ``s`` on planes (G, L, B, ...).  Returns path (G, B, L) int32,
-    or None (nothing allocated, nothing written) unless ``return_path``,
-    and stats (G, B, 16) int32."""
+def forward(s, seqs, lengths, origin32: bool = False, wide=None):
+    """Launch B1 (csrc/viterbi_forward.cu) once for the G loci of the
+    stack ``s`` over whole reads: seqs (G, B, L), lengths (G, B), CUDA
+    tensors.  ``wide`` forces an entry (None: by the model's shape).
+    Returns best (G, B), bstate (G, B), oMI (G, L, B, 2P), oXH
+    (G, L, B, 2nb)."""
+    return _launch_forward(s, seqs, lengths, origin32, None, 0, True, False,
+                           wide)[:4]
+
+
+def forward_segment(s, seqs, lengths, origin32: bool = False, state=None,
+                    t0: int = 0, planes: bool = True, wide=None):
+    """Launch B1 once over the columns t0 .. t0 + L - 1 that seqs
+    (G, B, L) holds, from ``state`` (None before column 0).  Returns best,
+    bstate, oMI, oXH (both None unless ``planes``) and the state after the
+    last column."""
+    return _launch_forward(s, seqs, lengths, origin32, state, t0, planes,
+                           True, wide)
+
+
+def _launch_backward(s, lengths, bstate, oMI, oXH, return_path, t0, entry,
+                     keep_state):
+    """One launch of B2 on planes that hold the columns t0 .. t0 + L - 1."""
     _require(oMI.dim() == 4 and oXH.dim() == 4,
              "origin planes must be (G, L, B, width)")
     G, L, B, P2 = oMI.shape
@@ -212,30 +282,86 @@ def backward(s, lengths, bstate, oMI, oXH, return_path: bool = True):
     _require(oMI.dtype == oXH.dtype
              and oMI.dtype in (torch.int16, torch.int32),
              "origin planes must both be int16 or both int32")
-    _require(s.region.shape[1] <= MAX_STRUCT,
-             f"B2 takes at most {MAX_STRUCT} struct states (model has "
-             f"{s.region.shape[1]})")
     _require(lengths.shape == (G, B) and bstate.shape == (G, B)
              and oXH.device == lengths.device == bstate.device == dev,
              "lengths and bstate must be (G, B) on the planes' device")
+    _require(entry is None
+             or (entry.shape == (G, B) and entry.device == dev),
+             "the entry state must be (G, B) on the planes' device")
     _check_stack(s, dev)
     lib = build()["viterbi_backward.cu"]
     origin32 = oMI.dtype == torch.int32
     mbit = MBIT32 if origin32 else MBIT16
     lengths32 = lengths.to(torch.int32).contiguous()
     bstate32 = bstate.to(torch.int32).contiguous()
+    entry32 = None if entry is None else entry.to(torch.int32).contiguous()
     oMI, oXH = oMI.contiguous(), oXH.contiguous()
     path = None
     if return_path:
         path = torch.empty(G, B, L, dtype=torch.int32, device=dev)
     stats = torch.empty(G, B, 16, dtype=torch.int32, device=dev)
+    exit_ = None
+    if keep_state:
+        exit_ = torch.empty(G, B, dtype=torch.int32, device=dev)
     if B == 0:
-        return path, stats
+        return path, stats, exit_
+    opt = lambda x: None if x is None else _ptr(x)
     code = lib.advntr_viterbi_backward(
         _ptr(lengths32), _ptr(bstate32), _ptr(oMI), _ptr(oXH),
-        _ptr(s.region), _ptr(s.unit), _ptr(path) if return_path else None,
-        _ptr(stats), G, B, L, s.P, s.nb, s.region.shape[1], int(origin32),
-        mbit, int(return_path), _stream(dev))
+        _ptr(s.region), _ptr(s.unit), opt(path), _ptr(stats), opt(entry32),
+        opt(exit_), G, B, L, s.P, s.nb, s.region.shape[1], int(origin32),
+        mbit, int(return_path), int(t0), _stream(dev))
     _check(code, "viterbi_backward")
     LAUNCHES["backward"] += 1
-    return path, stats
+    return path, stats, exit_
+
+
+def backward(s, lengths, bstate, oMI, oXH, return_path: bool = True):
+    """Launch B2 (csrc/viterbi_backward.cu) once for the G loci of the
+    stack ``s`` on whole reads' planes (G, L, B, ...).  Returns path
+    (G, B, L) int32, or None (nothing allocated, nothing written) unless
+    ``return_path``, and stats (G, B, 16) int32.  Models of more than
+    ``MAX_STRUCT`` states read their state tables from device memory."""
+    return _launch_backward(s, lengths, bstate, oMI, oXH, return_path, 0,
+                            None, False)[:2]
+
+
+def backward_segment(s, lengths, bstate, oMI, oXH, t0: int, entry):
+    """Launch B2 once on planes (G, L, B, ...) that hold the columns
+    t0 .. t0 + L - 1, from ``entry`` (G, B), the state each read stands
+    in at the range's last column.  Returns these columns' path (G, B, L)
+    and the state (G, B) above column t0."""
+    path, _, exit_ = _launch_backward(s, lengths, bstate, oMI, oXH, True, t0,
+                                      entry, True)
+    return path, exit_
+
+
+def local_align(reads, lengths, probe):
+    """Launch the batched local alignment (csrc/local_align.cu): reads
+    (B, L) int8 and lengths (B,) on a CUDA device, probe (m,) int8 with
+    m <= ``MAX_PROBE``.  Returns (score (B,), end (B,)) int32."""
+    _require(reads.dim() == 2 and reads.dtype == torch.int8,
+             f"reads must be (B, L) int8; got {tuple(reads.shape)} "
+             f"{reads.dtype}")
+    B, L = reads.shape
+    dev = reads.device
+    _require(lengths.shape == (B,) and lengths.device == dev
+             and probe.dim() == 1 and probe.device == dev
+             and probe.dtype == torch.int8,
+             "lengths must be (B,) and probe (m,) int8 on the reads' device")
+    m = probe.shape[0]
+    _require(1 <= m <= MAX_PROBE,
+             f"local_align takes probes of 1 to {MAX_PROBE} bases; got {m}")
+    lib = build()["local_align.cu"]
+    reads, probe = reads.contiguous(), probe.contiguous()
+    lengths32 = lengths.to(torch.int32).contiguous()
+    score = torch.zeros(B, dtype=torch.int32, device=dev)
+    end = torch.zeros(B, dtype=torch.int32, device=dev)
+    if B == 0 or L == 0:
+        return score, end
+    code = lib.advntr_local_align(_ptr(reads), _ptr(lengths32), _ptr(probe),
+                                  _ptr(score), _ptr(end), B, L, m,
+                                  _stream(dev))
+    _check(code, "local_align")
+    LAUNCHES["local_align"] += 1
+    return score, end

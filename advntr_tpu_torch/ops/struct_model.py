@@ -105,6 +105,9 @@ class TorchStructModel:
     region: torch.Tensor          # (2P+nb,) int32 per struct index
     unit: torch.Tensor            # (2P+nb,) int32 per struct index
     struct_to_art: torch.Tensor   # (2P+nb,) int64
+    # (kind, region, exp_base, unit), each (n_states,) int32 per artifact
+    # state: what the plain path analytics read
+    art_meta: tuple
     # this model as a group of one, kept by ``as_stack``
     _stack: "StructModelStack | None" = dataclasses.field(
         default=None, repr=False, compare=False)
@@ -145,7 +148,9 @@ class TorchStructModel:
             region=i32(np.asarray(art.region)[s2a]),
             unit=i32(np.asarray(art.unit)[s2a]),
             struct_to_art=torch.as_tensor(s2a.astype(np.int64),
-                                          device=device))
+                                          device=device),
+            art_meta=tuple(i32(x) for x in (art.kind, art.region,
+                                            art.exp_base, art.unit)))
 
     @property
     def device(self) -> torch.device:

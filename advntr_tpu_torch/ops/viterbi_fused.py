@@ -45,8 +45,9 @@ from advntr_tpu_torch.ops.struct_model import (
 
 BIG = 1 << 30
 MIN_BP_IN_REPEAT = 3  # reference: hmm_utils.py:165
-# the reference decodes longer reads with a checkpointed traceback
-# (finder.py:96) rather than full origin planes; that path is not ported
+# whole origin planes are built for reads up to this many columns; longer
+# ones take the checkpointed traceback (ops/viterbi_ckpt.py), as in the
+# reference (finder.py:96)
 MAX_COLUMNS = 2048
 
 # columns of the (B, N_STATS) int32 statistics from the backward walk
@@ -81,12 +82,55 @@ def _check_inputs(m: TorchStructModel, seqs, lengths):
                          f"on {m.device}")
 
 
+def initial_forward_state(m: TorchStructModel, B: int, device=None):
+    """The DP state before a read's first column, as B1 carries it from
+    one column to the next: (floats (B, 3P + 2nb) holding M|I, D, I0 and
+    hub, ints (B, P + nb) holding the origins Do and hubpo)."""
+    dev = m.device if device is None else device
+    return (torch.full((B, 3 * m.P + 2 * m.nb), float(NEG),
+                       dtype=torch.float32, device=dev),
+            torch.zeros(B, m.P + m.nb, dtype=torch.int32, device=dev))
+
+
+def forward_state_best(m: TorchStructModel, state):
+    """(best (B,) f32, bstate (B,) int32) of reads standing in ``state``:
+    the first maximum over the end weights of M|I and I0."""
+    P, nb = m.P, m.nb
+    fs = state[0]
+    LE = torch.cat([m.row("le_M"), m.row("le_I")])
+    fin = torch.cat([fs[:, :2 * P] + LE,
+                     fs[:, 3 * P:3 * P + nb] + m.row("le_I0")], dim=1)
+    best, bstate = _max_first_idx(fin)
+    return best[:, 0], bstate[:, 0].to(torch.int32)
+
+
 def fused_forward_reference(m: TorchStructModel, seqs, lengths,
                             origin32: bool = False):
     """Plain twin of B1 (pallas_viterbi.py:305-504, one column per step).
 
     seqs (B, L) integer bases, clipped to 0..3; lengths (B,).  Returns
-    (best (B,) f32, bstate (B,) int32, oMI (L, B, 2P), oXH (L, B, 2nb))."""
+    (best (B,) f32, bstate (B,) int32, oMI (L, B, 2P), oXH (L, B, 2nb)).
+    The whole read is the one-segment case of
+    ``fused_forward_segment_reference``."""
+    state, oMI, oXH = fused_forward_segment_reference(m, seqs, lengths,
+                                                      origin32)
+    best, bstate = forward_state_best(m, state)
+    return best, bstate, oMI, oXH
+
+
+def fused_forward_segment_reference(m: TorchStructModel, seqs, lengths,
+                                    origin32: bool = False, state=None,
+                                    t0: int = 0, planes: bool = True):
+    """The columns t0 .. t0 + L - 1 of B1's twin: seqs (B, L) holds those
+    columns' bases, ``lengths`` the whole reads' lengths, ``state`` the DP
+    state in which the reads stand after column t0 - 1 (None before column
+    0).  Returns (state after the last column, oMI (L, B, 2P), oXH
+    (L, B, 2nb)); the planes are None and never built unless ``planes``.
+
+    The state is the column loop's own: the float values of M|I, D, I0 and
+    hub, and the origins Do and hubpo.  The origins belong to it because a
+    hub sentinel in column t is resolved through the hub origins that
+    column t writes from the state it entered with."""
     B, L = seqs.shape
     P, nb, C = m.P, m.nb, m.C
     dev = seqs.device
@@ -112,27 +156,28 @@ def fused_forward_reference(m: TorchStructModel, seqs, lengths,
     W_C = torch.cat([row("a_dm"), row("di")])
     W_D = torch.cat([row("md"), row("idw")])
     START = torch.cat([row("M_start"), row("I_start")])
-    LE = torch.cat([row("le_M"), row("le_I")])
     eMT, eIT, eI0T = m.eM.T, m.eI.T, m.eI0.T
     exp_base = m.exp_base.long()
     unit_last = m.unit_last.long()
     ccol = torch.arange(C, device=dev)
     negP = neg.expand(B, P)
 
-    MI = neg.expand(B, 2 * P).clone()
-    D = neg.expand(B, P).clone()
-    Do = torch.zeros(B, P, dtype=i32, device=dev)
-    I0 = neg.expand(B, nb).clone()
-    hub = neg.expand(B, nb).clone()
-    hubpo = torch.zeros(B, nb, dtype=i32, device=dev)
-    oMI = torch.empty(L, B, 2 * P, dtype=odt, device=dev)
-    oXH = torch.empty(L, B, 2 * nb, dtype=odt, device=dev)
+    if state is None:
+        state = initial_forward_state(m, B, dev)
+    fs, is_ = state
+    MI, D, I0, hub = (x.clone() for x in
+                      fs.split([2 * P, P, nb, nb], dim=1))
+    Do, hubpo = (x.clone() for x in is_.split([P, nb], dim=1))
+    oMI = oXH = None
+    if planes:
+        oMI = torch.empty(L, B, 2 * P, dtype=odt, device=dev)
+        oXH = torch.empty(L, B, 2 * nb, dtype=odt, device=dev)
 
     for t in range(L):
         base = seqs[:, t]
         eMI = torch.cat([eMT[base], eIT[base]], dim=1)
         eI0 = eI0T[base]
-        act = (t < lengths)[:, None]
+        act = (t0 + t < lengths)[:, None]
 
         # ---- emitting layer: sources from the previous column ----
         v5, o5 = _pick(hub[:, blk] + row("ent_m"), hubsent_p.expand(B, P),
@@ -150,7 +195,7 @@ def fused_forward_reference(m: TorchStructModel, seqs, lengths,
         v0, o0 = _pick(I0 + row("i0_i"), idxI0.expand(B, nb),
                        hub + row("hub_i0"), hubsent_b.expand(B, nb))
         I0n, OI0n = eI0 + v0, o0
-        if t == 0:
+        if t0 + t == 0:
             MIn = START + eMI
             I0n = row("I0_start") + eI0
             OMIn = torch.full_like(OMIn, -1)
@@ -202,19 +247,19 @@ def fused_forward_reference(m: TorchStructModel, seqs, lengths,
                         hubsent_p.expand(B, P))
 
         # ---- plane writes and state commit ----
-        match = (base[:, None] == exp_base).to(i32) * mbit
-        oMI[t] = (OMIn + 1 + torch.cat([match, torch.zeros_like(match)],
-                                       dim=1)).to(odt)
-        oXH[t] = (torch.cat([OI0n, hubpo], dim=1) + 1).to(odt)
+        if planes:
+            match = (base[:, None] == exp_base).to(i32) * mbit
+            oMI[t] = (OMIn + 1 + torch.cat([match, torch.zeros_like(match)],
+                                           dim=1)).to(odt)
+            oXH[t] = (torch.cat([OI0n, hubpo], dim=1) + 1).to(odt)
         MI, I0 = MIn, I0n
         D = torch.where(act, Dn, D)
         Do = torch.where(act, Don, Do)
         hub = torch.where(act, hubn, hub)
         hubpo = torch.where(act, hubon, hubpo)
 
-    fin = torch.cat([MI + LE, I0 + row("le_I0")], dim=1)
-    best, bstate = _max_first_idx(fin)
-    return best[:, 0], bstate[:, 0].to(i32), oMI, oXH
+    return (torch.cat([MI, D, I0, hub], dim=1),
+            torch.cat([Do, hubpo], dim=1)), oMI, oXH
 
 
 def _take_or(table, idx, fill):
@@ -227,7 +272,25 @@ def _take_or(table, idx, fill):
 def backward_stats_reference(m: TorchStructModel, lengths, bstate, oMI, oXH):
     """Plain twin of B2 (pallas_viterbi.py:580-733), one gather per read
     per column.  Returns (path (B, L) int32 struct indices, stats
-    (B, N_STATS) int32)."""
+    (B, N_STATS) int32).  The whole read is the one-segment case of
+    ``backward_walk_segment_reference``."""
+    path, stats, _ = backward_walk_segment_reference(m, lengths, bstate,
+                                                     oMI, oXH)
+    return path, stats
+
+
+def backward_walk_segment_reference(m: TorchStructModel, lengths, bstate,
+                                    oMI, oXH, t0: int = 0, entry=None):
+    """The walk of B2's twin over the columns t0 .. t0 + L - 1, whose
+    planes are oMI, oXH (L, B, ...): ``lengths`` and ``bstate`` are the
+    whole reads', ``entry`` (B,) the state in which each read stands at
+    column t0 + L - 1 (what the walk over the columns above returned; None
+    where the range holds every read's last column).  A read whose last
+    column lies before the range does nothing in it; one whose last column
+    lies in it starts from ``bstate``.  Returns (path (B, L) of these
+    columns, stats, the state each read stands in above column t0, that
+    is at column t0 - 1).  The statistics count these columns alone: they
+    are a read's statistics only where the range is the whole read."""
     L, B, P2 = oMI.shape
     P, nb = P2 // 2, oXH.shape[2] // 2
     mbit = MBIT32 if oMI.dtype == torch.int32 else MBIT16
@@ -235,7 +298,7 @@ def backward_stats_reference(m: TorchStructModel, lengths, bstate, oMI, oXH):
     lengths = lengths.long()
     rows = torch.arange(B, device=dev)
     z = torch.zeros(B, dtype=torch.long, device=dev)
-    cur = bstate.long()
+    cur = (bstate if entry is None else entry).long()
     rnext, unext = z.clone(), z.clone()
     nm, repbp, lbp, rbp, lmt, rmt, starts, ends = (z.clone() for _ in range(8))
     fs, ls = z + BIG, z - BIG
@@ -247,13 +310,14 @@ def backward_stats_reference(m: TorchStructModel, lengths, bstate, oMI, oXH):
         return torch.where(
             ok, plane[rows, idx.clamp(0, plane.shape[1] - 1)].long(), 0)
 
-    for t in range(L - 1, -1, -1):
-        path[:, t] = cur.to(torch.int32)
-        sel = torch.where(cur < 2 * P, lookup(oMI[t], cur),
-                          lookup(oXH[t], cur - 2 * P))
+    for t in range(t0 + L - 1, t0 - 1, -1):
+        pMI, pXH = oMI[t - t0], oXH[t - t0]
+        path[:, t - t0] = cur.to(torch.int32)
+        sel = torch.where(cur < 2 * P, lookup(pMI, cur),
+                          lookup(pXH, cur - 2 * P))
         m_bit = sel >= mbit
         prev = (sel & (mbit - 1)) - 1
-        selH = lookup(oXH[t], prev - 2 * P) - 1
+        selH = lookup(pXH, prev - 2 * P) - 1
         prev = torch.where(prev >= 2 * P + nb, selH, prev)
         region = _take_or(m.region, cur, 0).long()
         unit = _take_or(m.unit, cur, -1).long()
@@ -310,7 +374,7 @@ def backward_stats_reference(m: TorchStructModel, lengths, bstate, oMI, oXH):
 
     stats = torch.stack([nm, repbp, lbp, rbp, lmt, rmt, starts, ends,
                          fs, ls, fe, le] + [z] * (N_STATS - 12), dim=1)
-    return path, stats.to(torch.int32)
+    return path, stats.to(torch.int32), cur.to(torch.int32)
 
 
 def backward_stats_windowed_reference(m: TorchStructModel, lengths, bstate,
@@ -339,6 +403,17 @@ def backward_stats_windowed_reference(m: TorchStructModel, lengths, bstate,
 def _windowed_walk(m, lengths, bstate, oMI, oXH, window, return_path):
     """backward_stats_windowed_reference, with the windows each read took
     as a third result."""
+    return windowed_walk_segment(m, lengths, bstate, oMI, oXH, window,
+                                 return_path)[:3]
+
+
+def windowed_walk_segment(m, lengths, bstate, oMI, oXH, window,
+                          return_path, t0: int = 0, entry=None):
+    """The window scheme over the columns t0 .. t0 + L - 1, with the
+    arguments of ``backward_walk_segment_reference``: a window ends at the
+    range's first column, as it ends at column 0 of a whole read.  Returns
+    (path or None, stats, windows each read took in the range, state
+    above column t0)."""
     L, B, P2 = oMI.shape
     P, nb = P2 // 2, oXH.shape[2] // 2
     mbit = MBIT32 if oMI.dtype == torch.int32 else MBIT16
@@ -351,9 +426,9 @@ def _windowed_walk(m, lengths, bstate, oMI, oXH, window, return_path):
     lane = torch.arange(W, device=dev)[None, :]
     rows = torch.arange(B, device=dev)[:, None]
     z = torch.zeros(B, dtype=torch.long, device=dev)
-    cur = bstate.long()
+    cur = (bstate if entry is None else entry).long()
     # columns at and past a read's end hold its end state and count nothing
-    t = lengths.clamp(max=L) - 1
+    t = lengths.clamp(max=t0 + L) - 1
     rnext, unext = z.clone(), z.clone()
     nm, repbp, lbp, rbp, lmt, rmt, starts, ends = (z.clone() for _ in range(8))
     fs, ls = z + BIG, z - BIG
@@ -366,7 +441,8 @@ def _windowed_walk(m, lengths, bstate, oMI, oXH, window, return_path):
     def lookup(plane, col, idx):
         ok = (idx >= 0) & (idx < plane.shape[2])
         return torch.where(
-            ok, plane[col, rows, idx.clamp(0, plane.shape[2] - 1)].long(), 0)
+            ok, plane[col - t0, rows,
+                      idx.clamp(0, plane.shape[2] - 1)].long(), 0)
 
     def low(x, mask):
         return torch.where(mask, x, BIG).min(dim=1).values
@@ -374,14 +450,14 @@ def _windowed_walk(m, lengths, bstate, oMI, oXH, window, return_path):
     def high(x, mask):
         return torch.where(mask, x, -BIG).max(dim=1).values
 
-    while bool((t >= 0).any()):
-        live = (t >= 0)[:, None]
+    while bool((t >= t0).any()):
+        live = (t >= t0)[:, None]
         col = t[:, None] - lane
         step = (cur < P).long()[:, None]
         s = cur[:, None] - lane * step
         in_model = ((cur >= 0) & (cur < m.region.shape[0]))[:, None]
-        active = live & (col >= 0) & ((lane == 0) | (in_model & (s >= 0)))
-        colc = col.clamp(min=0)
+        active = live & (col >= t0) & ((lane == 0) | (in_model & (s >= 0)))
+        colc = col.clamp(min=t0)
         sel = torch.where(s < 2 * P, lookup(oMI, colc, s),
                           lookup(oXH, colc, s - 2 * P))
         m_bit = sel >= mbit
@@ -449,14 +525,16 @@ def _windowed_walk(m, lengths, bstate, oMI, oXH, window, return_path):
         ls = torch.maximum(ls, high(torch.zeros_like(col), cs0 > 0))
 
         if return_path:
-            path[rows.expand_as(col)[true], col[true]] = \
+            path[rows.expand_as(col)[true], col[true] - t0] = \
                 s[true].to(torch.int32)
         # the last true lane hands the walk on
         n_true = true.sum(dim=1)
         j = (n_true - 1).clamp(min=0)[:, None]
         step = live[:, 0]
         last = lambda x: torch.gather(x, 1, j)[:, 0]
-        cur = torch.where(step & last(moves), last(prev), cur)
+        # (a walk that has reached column 0 stays in that column's state)
+        cur = torch.where(step, torch.where(last(moves), last(prev),
+                                            last(s)), cur)
         rnext = torch.where(step, last(region), rnext)
         unext = torch.where(step, last(unit), unext)
         t = t - n_true
@@ -464,7 +542,7 @@ def _windowed_walk(m, lengths, bstate, oMI, oXH, window, return_path):
 
     stats = torch.stack([nm, repbp, lbp, rbp, lmt, rmt, starts, ends,
                          fs, ls, fe, le] + [z] * (N_STATS - 12), dim=1)
-    return path, stats.to(torch.int32), n_windows
+    return path, stats.to(torch.int32), n_windows, cur.to(torch.int32)
 
 
 def windows_from_path(path, lengths, P: int, n_struct: int,
@@ -526,6 +604,57 @@ def fused_forward_grouped_reference(s: StructModelStack, seqs, lengths,
     return _loop_twin(
         lambda m, q, n: fused_forward_reference(m, q, n, origin32),
         s, seqs, lengths)
+
+
+def fused_forward_segment_grouped(s: StructModelStack, seqs, lengths,
+                                  origin32: bool = False, state=None,
+                                  t0: int = 0, planes: bool = True):
+    """B1 over the columns t0 .. t0 + L - 1 of G loci: seqs (G, B, L) holds
+    those columns, ``state`` (floats (G, B, 3P + 2nb), ints (G, B, P + nb))
+    is where the reads stand after column t0 - 1, None before column 0.
+    One launch of the CUDA kernel for CUDA tensors, the looped twin for
+    CPU ones.  Returns (best (G, B), bstate (G, B), oMI, oXH, state after
+    the last column); best and bstate are those of reads that end in this
+    state, and the planes are None unless ``planes``."""
+    _check_group_inputs(s, seqs, lengths)
+    if seqs.is_cuda:
+        return _kernels.forward_segment(s, seqs, lengths, origin32, state,
+                                        t0, planes)
+    if seqs.device.type != "cpu":
+        raise ValueError(f"no fused_forward for device {seqs.device}")
+    ends, planes_out, exits = [], [], []
+    for g, m in enumerate(s.models):
+        entry = None if state is None else (state[0][g], state[1][g])
+        exit_, oMI, oXH = fused_forward_segment_reference(
+            m, seqs[g], lengths[g], origin32, entry, t0, planes)
+        ends.append(forward_state_best(m, exit_))
+        planes_out.append((oMI, oXH))
+        exits.append(exit_)
+    stack = lambda rows: tuple(torch.stack(parts) for parts in zip(*rows))
+    oMI, oXH = stack(planes_out) if planes else (None, None)
+    return stack(ends) + (oMI, oXH, stack(exits))
+
+
+def backward_walk_segment_grouped(s: StructModelStack, lengths, bstate,
+                                  oMI, oXH, t0: int = 0, entry=None):
+    """B2 over the columns t0 .. t0 + L - 1 of G loci on those columns'
+    planes (G, L, B, ...), from ``entry`` (G, B), the state each read
+    stands in at the range's last column (None: ``bstate``).  One launch
+    of the CUDA kernel for CUDA tensors, the looped twin for CPU ones.
+    Returns (path (G, B, L) of these columns, the state (G, B) above
+    column t0)."""
+    if entry is None:
+        entry = bstate
+    if oMI.is_cuda:
+        return _kernels.backward_segment(s, lengths, bstate, oMI, oXH, t0,
+                                         entry)
+    if oMI.device.type != "cpu":
+        raise ValueError(f"no backward walk for device {oMI.device}")
+    outs = [backward_walk_segment_reference(
+        m, lengths[g], bstate[g], oMI[g], oXH[g], t0, entry[g])
+        for g, m in enumerate(s.models)]
+    return (torch.stack([o[0] for o in outs]),
+            torch.stack([o[2] for o in outs]))
 
 
 def backward_stats_grouped(s: StructModelStack, lengths, bstate, oMI, oXH,
@@ -598,8 +727,9 @@ def _pipeline(s: StructModelStack, seqs, lengths, origin32, return_path,
     reference has it (pallas_viterbi.py:836-837)."""
     if seqs.shape[-1] > MAX_COLUMNS:
         raise NotImplementedError(
-            f"reads of {seqs.shape[-1]} columns need the checkpointed "
-            "traceback, which is not ported yet (ROADMAP.md A9)")
+            f"whole origin planes stop at {MAX_COLUMNS} columns; reads of "
+            f"{seqs.shape[-1]} take the checkpointed traceback "
+            "(ops/viterbi_ckpt.py)")
     best, bstate, oMI, oXH = forward(s, seqs, lengths, origin32)
     path, stats = backward(s, lengths, bstate, oMI, oXH, return_path)
     return best, bstate, path, stats

@@ -10,7 +10,8 @@ import random
 
 from advntr_tpu_torch import dna
 from advntr_tpu_torch.engine.simulate import (haplotype_sequence, mutate,
-                                              simulate_diploid_reads)
+                                              simulate_diploid_reads,
+                                              simulate_pacbio_reads)
 from advntr_tpu_torch.io.bam import BamRead, BamWriter, build_bai
 from advntr_tpu_torch.models.compiler import compile_graph
 from advntr_tpu_torch.models.db import (create_vntrs_database,
@@ -149,6 +150,99 @@ def write_panel(workdir: str, n_loci: int = 16, read_length: int = 150,
         for name, seq in all_reads:
             w.write(BamRead(name, 4, -1, -1, 0, [], seq, [38] * len(seq)))
     return db, bam, truth
+
+
+LONG_READ_MOTIF = "CGCGGGGCGGGGCACCCACGTACGT"   # 25 bases
+
+
+def long_read_copies(L: int) -> int:
+    """Copies of the long-read model for reads of L columns: the model
+    grows with the window it must explain (a read that spans the tract
+    leaves L - 600 bases of repeat), 60 up to L = 2,432."""
+    return 60 if L <= 2432 else (L - 700) // len(LONG_READ_MOTIF)
+
+
+def build_long_read_locus(L: int = 2432):
+    """The long-read locus: a 25-base motif between 300-base flanks cut
+    from two random 500-base flanks (seed 5), error rate 0.3,
+    ``long_read_copies(L)`` copies.  Returns (graph, art, rng, hap): the
+    generator stands where the reads are drawn from, and ``hap`` is the
+    haplotype they are mutated from (8 copies short of the model, at
+    least 40).  At L = 2,432 it has 4,262 states, and with the engine's
+    padding (axes past 1,024 to multiples of 512) struct P 2,560."""
+    rng = random.Random(5)
+    left = "".join(rng.choice("ACGT") for _ in range(500))
+    right = "".join(rng.choice("ACGT") for _ in range(500))
+    copies = long_read_copies(L)
+    trans, emis = profile_for_repeats([LONG_READ_MOTIF] * 3, 0.3)
+    graph = build_read_matcher(left[-300:], right[:300], trans, emis, copies,
+                               0.3)
+    hap = left[-300:] + LONG_READ_MOTIF * max(40, copies - 8) + right[:300]
+    return graph, compile_graph(graph), rng, hap
+
+
+def simulate_long_reads(rng, hap: str, n_reads: int, L: int):
+    """``n_reads`` reads of the haplotype, 8% substitutions, filled with
+    random bases and cut to exactly L columns."""
+    reads = []
+    for _ in range(n_reads):
+        s = mutate(hap, 0.08, rng)
+        s = (s + "".join(rng.choice("ACGT")
+                         for _ in range(max(0, L - len(s)))))[:L]
+        reads.append(s)
+    return reads
+
+
+PACBIO_READ_LEN = 3000
+
+
+def write_pacbio_panel(workdir: str, n_loci: int = 4, coverage: float = 10,
+                       long_locus: int | None = 1, seed: int = 777):
+    """A small long-read panel: ``n_loci`` loci with 500-base flanks and
+    tracts up to about 1 kb, and (at index ``long_locus``) one long-tract
+    locus of 2.3 to 2.9 kb whose read windows pass 2,048 columns; noisy
+    3,000-base reads (1% substitutions, 4% insertions, 4% deletions, both
+    orientations) in one FASTA file.  Returns (db path, fasta path,
+    {vid: (a, b)} truth, [vid of the long-tract locus])."""
+    rng = random.Random(seed)
+    db = os.path.join(workdir, "pacbio_panel.db")
+    create_vntrs_database(db)
+    fa = os.path.join(workdir, "pacbio_reads.fa")
+    truth, long_vids = {}, []
+    with open(fa, "w") as fh:
+        for i in range(n_loci):
+            if i == long_locus:
+                plen = rng.choice([20, 25, 30])
+                ref_copies = max(3, rng.randint(2300, 2900) // plen)
+                lo, hi = ref_copies - 3, ref_copies + 3
+            else:
+                plen = rng.choice([10, 15, 20, 25, 30, 40])
+                hi = max(3, min(30, 1000 // plen))
+                lo, ref_copies = 3, rng.randint(3, hi)
+            pattern = "".join(rng.choice("ACGT") for _ in range(plen))
+            ref = ReferenceVNTR(2000 + i, pattern, 10_000 * (i + 1), "chr1")
+            ref.repeat_segments = [pattern] * ref_copies
+            ref.left_flanking_region = "".join(
+                rng.choice("ACGT") for _ in range(500))
+            ref.right_flanking_region = "".join(
+                rng.choice("ACGT") for _ in range(500))
+            ref.estimated_repeats = ref_copies
+            save_reference_vntr_to_database(ref, db)
+            alleles = tuple(sorted((rng.randint(lo, hi),
+                                    rng.randint(lo, hi))))
+            truth[ref.id] = alleles
+            if i == long_locus:
+                long_vids.append(ref.id)
+            # long-tract loci need reads that still span the tract and
+            # both flank anchors
+            read_len = max(PACBIO_READ_LEN, max(alleles) * plen + 1200)
+            reads, _, _ = simulate_pacbio_reads(
+                ref.left_flanking_region, pattern, alleles[0], alleles[1],
+                ref.right_flanking_region, read_length=read_len,
+                coverage=coverage, seed=900 + i)
+            for name, seq in reads:
+                fh.write(f">L{ref.id}_{name}\n{seq}\n")
+    return db, fa, truth, long_vids
 
 
 def encode_reads(reads: list[str], pad_to: int):

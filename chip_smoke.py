@@ -21,7 +21,9 @@ Phases (any failed check exits non-zero):
    padded to at least 512 rows): one grouped B1 and one grouped B2 launch,
    bit-identical to the per-locus twins;
 4. timing: median of 10 CUDA-event-timed runs after warm-up, kernels and
-   twins, as reads/s, at the cell (G 1, B 4096) and, the kernels, at the
+   twins, as reads/s, at the cell (G 1, B 4096; there also B1's wide entry
+   forced onto the narrow model, in turns with the first entry) and, the
+   kernels, at the
    group shape (G 8), each beside its bound: the larger of the bytes it
    must move over 3.35 TB/s and its float32 operations over 67 TFLOP/s,
    counted from this run's inputs; B2 also alone (one launch between two
@@ -39,6 +41,40 @@ Phases (any failed check exits non-zero):
    CSTB 2/5, both kernels launched, and in the warm rerun once per locus
    group, not once per locus.  Prints the cold run's stage totals.
 
+6. long reads (the second path): B1's wide entry and the carried state,
+   and B2 over column ranges, against the twins at a shape the twins can
+   afford (P 1,536, C 288, B 5 ragged, L 320, segments of 64): planes,
+   states, paths bit-identical segment by segment and as a whole;
+   segments against whole planes with the kernels at the CSTB cell
+   (K 64) and on the long-read model cut to L 2,048 (K 512); the
+   long-read path at full width (25-base motif, 60 copies, 4,262 states,
+   struct P 2,560 under the engine's padding, 64 reads of L 2,432 at 8%
+   substitutions, seed 5) through
+   read_stats_ckpt with K 512 and K 1,024, bit-identical, timed, with
+   peak device memory and launches, B1's wide entry and B2's ranged walk
+   timed alone on one segment beside their bounds (B2 as one launch
+   between two events with the L2 cold, and through its wrapper), and on
+   that segment, from the same entry state, held to the plain twins at
+   full width: B1's planes and exit state over all 512 columns, B2's path
+   slice and exit state, bit-identical, the twins' times as measured;
+   local_align against its plain version on 3,000-base and 12,288-base
+   reads in both directions, exact, timed;
+7. long reads end to end: ``genotype -p -f`` on a four-locus synthetic
+   PacBio panel (noisy 3,000-base reads, both orientations, one long-tract
+   locus whose windows pass 2,048 columns): every locus at its simulated
+   genotype, the long-tract locus through the checkpointed path and the
+   wide entry, ``--device cpu`` (the twins, segment by segment) giving the
+   same text on all four loci, the long-tract one included.
+
+    python3 chip_smoke.py --long-tail
+
+also runs the long-read path at its tail shape, L = P = 12,288 (471
+copies, 24,815 states), B 8, K 512 against K 1,024, with B1's twin over
+16 columns of a segment and B2's over its whole range held to the kernels
+(int32 origins, state tables read from device memory).  The host compile
+of that model takes minutes and several GB, so it is not in the default
+run.
+
     python3 chip_smoke.py --profile
 
 also reruns the warm panel under torch.profiler and prints its wall time,
@@ -50,6 +86,14 @@ also builds each FILE (a CUDA source with the committed B2 kernel's C entry
 point, such as an earlier version of csrc/viterbi_backward.cu), holds it to
 the twin and times it alone in turns with the committed kernel.
 
+    python3 chip_smoke.py --forward-source FILE[,FILE...]
+
+does the same for B1's whole-read launch at the cell: each FILE must export
+the committed csrc/viterbi_forward.cu's C entry point (an earlier version
+needs the later arguments added to its signature).
+
+The Illumina path (phase 5) and the long-read path (phase 7) are each
+driven with every launch count set to 0 just before and read just after.
 The last three lines are the nvidia-smi line, one JSON object of the
 kernels, and {"ok": true, "device": {...}}.
 """
@@ -76,6 +120,9 @@ PANEL_LOCI = 24
 GROUP, GROUP_ROWS = 8, 512
 # 24 loci in two shape buckets, groups of 8: at most 6 launches of a kernel
 MAX_GROUP_LAUNCHES = 6
+# the kernels of the Illumina path (narrow models, whole reads); the
+# long-read path has its own launches, read in its own phase
+ILLUMINA_KERNELS = ("forward", "backward")
 # recruitment cell: a 6,719-locus panel, ~40 15-mer keywords per locus,
 # one chunk of 150 bp reads
 RECRUIT_LOCI, RECRUIT_KEYWORDS = 6719, 40
@@ -381,6 +428,19 @@ def phase_timing(m, seqs, lens, group):
             f"{ms[name][1]:.3f} ms ({N_READS / ms[name][1] * 1e3:.0f} "
             f"reads/s) at B={N_READS}, L={L_PAD}, P={m.P}")
     del best, bstate, oMI, oXH
+    # B1's second entry forced onto the cell's narrow model, in turns with
+    # the first entry: what one entry for every model would cost here
+    from advntr_tpu_torch.ops import _kernels
+    one = m.as_stack()
+    first = lambda: _kernels.forward(one, seqs[None], lens[None])
+    wide = lambda: _kernels.forward(one, seqs[None], lens[None], wide=True)
+    check(all(torch.equal(a, b) for a, b in zip(first(), wide())),
+          "B1's wide entry differs from the first entry at the cell")
+    f1, w1 = time_ms(first), time_ms(wide, iters=5, warmup=1)
+    w2, f2 = time_ms(wide, iters=5, warmup=1), time_ms(first)
+    ms["B1_wide_at_cell"] = (min(f1, f2), min(w1, w2))
+    log(f"timing B1 at the cell, entry by entry: first {min(f1, f2):.3f} ms, "
+        f"wide {min(w1, w2):.3f} ms (bit-identical results)")
     cell = bounds_ms(TorchStructModel.stack([m]), seqs[None], lens[None])
     ms["bound"] = {"B1": cell[:2], "B2": cell[2:]}
     log(f"bound at the cell: B1 {cell[0]:.4f} ms ({cell[1]}), reached "
@@ -398,6 +458,52 @@ def phase_timing(m, seqs, lens, group):
         f"P={stack.P}): B1 {g1:.3f} ms (bound {gb[0]:.4f} ms, {gb[1]}), "
         f"B2 {g2:.3f} ms (bound {gb[2]:.5f} ms, {gb[3]})")
     return ms
+
+
+def phase_forward_sources(kernels, m, seqs, lens, sources):
+    """B1's whole-read launch at the cell from other CUDA sources with the
+    committed kernel's C entry point, held equal to the committed kernel's
+    results and timed in turns with it, through the same wrapper."""
+    import ctypes
+    libs = kernels.build()
+    name = "viterbi_forward.cu"
+    builds = {"committed": libs[name]}
+    jobs = [(os.path.abspath(src),
+             kernels.BUILD_DIR / f"libforward_alt{i}.so")
+            for i, src in enumerate(sources)]
+    kernels.compile_sources(jobs)
+    for src, out in jobs:
+        lib = ctypes.CDLL(str(out))
+        lib.advntr_viterbi_forward.argtypes = \
+            libs[name].advntr_viterbi_forward.argtypes
+        lib.advntr_viterbi_forward.restype = ctypes.c_int
+        builds[os.path.relpath(src)] = lib
+    stack = m.as_stack()
+
+    def forward(build):
+        libs[name] = builds[build]
+        try:
+            return kernels.forward(stack, seqs[None], lens[None])
+        finally:
+            libs[name] = builds["committed"]
+
+    want = forward("committed")
+    for build in list(builds)[1:]:
+        got = forward(build)
+        torch.cuda.synchronize()
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"{build} differs from the committed B1 at the cell")
+    del want
+    # in turns: every build, then every build again in reverse, twice
+    order = (list(builds) + list(builds)[::-1]) * 2
+    times = {}
+    for build in order:
+        times.setdefault(build, []).append(
+            time_ms(lambda: forward(build), iters=20))
+    for build, ts in times.items():
+        log(f"B1 whole reads at the cell: {build} "
+            + ", ".join(f"{t:.4f}" for t in ts) + " ms (medians of 20, in "
+            "turns)")
 
 
 def phase_walk(kernels, m, seqs, lens, group, sources):
@@ -571,6 +677,388 @@ def phase_recruitment(dev):
         f"{plane / 2**20:.1f} MiB int32 count plane")
 
 
+# ---- long reads ----------------------------------------------------------
+
+LONG_L, LONG_B, LONG_K = 2432, 64, 512
+TAIL_L, TAIL_B = 12288, 8
+HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
+
+
+def phase_wide_vs_twins(dev, kernels):
+    """B1's wide entry with the carried state and B2 over column ranges
+    against the twins, segment by segment and as a whole, on a model past
+    the first entry's limits.  Returns the largest |best - twin|."""
+    from advntr_tpu_torch import dna
+    from advntr_tpu_torch.engine.simulate import mutate
+    from advntr_tpu_torch.ops import viterbi_fused as vf
+    from advntr_tpu_torch.ops.struct_model import TorchStructModel
+    from advntr_tpu_torch.synthetic import locus_model, rand_seq
+    import random
+    left, right = rand_seq(7, 60), rand_seq(8, 60)
+    art, sm = locus_model(["ACGTA"] * 3, left, right, 260, pos_bucket=128,
+                          unit_bucket=32)
+    m = TorchStructModel.from_payload(art, sm, dev)
+    stack = m.as_stack()
+    check(m.P == 1536 and m.C > kernels.MAX_UNITS
+          and kernels.takes_wide_entry(stack),
+          f"wide check model has P={m.P}, C={m.C}")
+    rng = random.Random(3)
+    hap = left + "ACGTA" * 40 + right
+    reads = [mutate(r, 0.05, rng) for r in
+             (hap, hap[10:200], hap[5:150], hap[30:])] + ["A"]
+    batch, lengths = dna.pad_batch([dna.encode(r) for r in reads],
+                                   pad_to=256, multiple=32)
+    seqs = torch.as_tensor(batch, device=dev)
+    lens = torch.as_tensor(lengths, device=dev)
+    L, K = seqs.shape[1], 64
+    want = vf.fused_forward_reference(m, seqs, lens)
+    got = vf.fused_forward(m, seqs, lens)
+    torch.cuda.synchronize()
+    err = float((got[0] - want[0]).abs().max())
+    check(all(torch.equal(g, w) for g, w in zip(got, want)),
+          "B1 wide entry, whole read, differs from the twin")
+    path_w, stats_w = vf.backward_stats_reference(m, lens, *want[1:])
+    path, stats = vf.backward_stats(m, lens, *got[1:])
+    check(torch.equal(path, path_w) and torch.equal(stats, stats_w),
+          "B2 on the wide model differs from the twin")
+    state = twin = None
+    for c0 in range(0, L, K):
+        cols = seqs[:, c0:c0 + K]
+        b, e, oMI, oXH, state = vf.fused_forward_segment_grouped(
+            stack, cols[None], lens[None], False, state, c0)
+        twin, tMI, tXH = vf.fused_forward_segment_reference(
+            m, cols, lens, False, twin, c0)
+        check(torch.equal(oMI[0], tMI) and torch.equal(oXH[0], tXH)
+              and torch.equal(state[0][0], twin[0])
+              and torch.equal(state[1][0], twin[1])
+              and torch.equal(tMI, want[2][c0:c0 + K]),
+              f"B1 wide entry differs from the twin in segment {c0}")
+    check(torch.equal(b[0], want[0]) and torch.equal(e[0], want[1]),
+          "B1 wide entry: the last segment's best or end state differs")
+    cur = cur_t = want[1]
+    whole = torch.empty_like(path_w)
+    for c0 in reversed(range(0, L, K)):
+        planes = (want[2][c0:c0 + K], want[3][c0:c0 + K])
+        seg, cur = vf.backward_walk_segment_grouped(
+            stack, lens[None], want[1][None], planes[0][None],
+            planes[1][None], c0, cur[None])
+        cur = cur[0]
+        seg_t, _, cur_t = vf.backward_walk_segment_reference(
+            m, lens, want[1], *planes, c0, cur_t)
+        check(torch.equal(seg[0], seg_t) and torch.equal(cur, cur_t),
+              f"B2 over columns {c0}.. differs from the twin")
+        whole[:, c0:c0 + K] = seg[0]
+    check(torch.equal(whole, path_w), "B2's segments do not add up to the "
+                                      "whole walk")
+    log(f"wide and carried kernels: P={m.P}, C={m.C}, B={len(reads)} ragged, "
+        f"L={L}, K={K}: B1's wide entry and B2's ranged walk bit-identical "
+        f"to the twins, segment by segment (planes, states, path slices) "
+        f"and as a whole")
+    return err
+
+
+def _segments_equal_whole(da, m, seqs, lens, K, what):
+    whole = da.read_stats(m, seqs, lens, return_path=True)
+    out = da.read_stats_ckpt(m, seqs, lens, return_path=True, segment=K)
+    torch.cuda.synchronize()
+    check(set(out) == set(whole)
+          and all(torch.equal(out[k], v) for k, v in whole.items()),
+          f"{what}: segments of {K} differ from whole planes")
+    log(f"segments against whole planes, {what} (B={seqs.shape[0]}, "
+        f"L={seqs.shape[1]}, P={m.P}, K={K}): logp, statistics and paths "
+        f"bit-identical")
+
+
+def long_read_bounds(m, B, K, width):
+    """Bounds in ms of one K-column segment launch on B reads: B1's wide
+    entry with planes (the planes written, the state read and written,
+    the bases; about 31 + 2 rounds operations a position and column) and
+    without (the states alone), and B2's ranged walk (one code a read
+    and column)."""
+    P, nb = m.P, m.nb
+    rounds = m.Wd.shape[0]
+    state = B * (4 * P + 3 * nb) * 4
+    plane = K * B * (2 * P + 2 * nb) * width
+    ops = P * K * B * (31 + 2 * rounds)
+    with_planes = max((plane + 2 * state + K * B) / HBM_BYTES_PER_S,
+                      ops / F32_OPS_PER_S)
+    bare = max((2 * state + K * B) / HBM_BYTES_PER_S, ops / F32_OPS_PER_S)
+    walk = max((K * B * width + B * 16 + 4 * K * B) / HBM_BYTES_PER_S,
+               40 * K * B / F32_OPS_PER_S)
+    which = "bytes" if (plane + 2 * state) / HBM_BYTES_PER_S \
+        > ops / F32_OPS_PER_S else "operations"
+    return with_planes * 1e3, bare * 1e3, walk * 1e3, which
+
+
+def phase_long_reads(dev, kernels, cell, L, B, tail=False):
+    """The long-read path at full width: the long-read locus and its
+    reads through read_stats_ckpt, K 512 against K 1,024, timed."""
+    from advntr_tpu_torch.engine import device_analytics as da
+    from advntr_tpu_torch.engine.finder import LocusModelCache
+    from advntr_tpu_torch.models.struct_compiler import build_structured
+    from advntr_tpu_torch.ops import viterbi_fused as vf
+    from advntr_tpu_torch.synthetic import (build_long_read_locus,
+                                            encode_reads,
+                                            simulate_long_reads)
+    t0 = time.perf_counter()
+    graph, art, rng, hap = build_long_read_locus(L)
+    lm = LocusModelCache(device=dev)._build_from_payload(
+        art, build_structured(graph, art))
+    m = lm.model
+    host_s = time.perf_counter() - t0
+    reads = simulate_long_reads(rng, hap, B, L)
+    batch, lengths = encode_reads(reads, L)
+    seqs = torch.as_tensor(batch, device=dev)
+    lens = torch.as_tensor(lengths, device=dev)
+    width = 4 if vf.origin_params(m.P, m.nb)[0] == torch.int32 else 2
+    log(f"long-read model: n_states {art.n_states}, struct P {m.P}, C {m.C}, "
+        f"{m.Wd.shape[0]} delete rounds, int{8 * width} origins; host build "
+        f"{host_s:.1f} s; {B} reads of L={L}")
+    if not tail:
+        check(m.P == 2560, f"long-read model has struct P {m.P}, not 2560")
+        # the same model cut to whole-plane length, and the cell
+        _segments_equal_whole(da, m, seqs[:8, :2048],
+                              lens[:8].clamp(max=2048), 512,
+                              "long-read model cut to L 2,048")
+        _segments_equal_whole(da, *cell, 64, "CSTB cell")
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = da.read_stats_ckpt(m, seqs, lens, return_path=True, segment=LONG_K)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = dict(kernels.LAUNCHES)
+    other = da.read_stats_ckpt(m, seqs, lens, return_path=True,
+                               segment=2 * LONG_K)
+    torch.cuda.synchronize()
+    check(all(torch.equal(out[k], other[k]) for k in out),
+          f"L={L}: K {LONG_K} and K {2 * LONG_K} disagree")
+    check(bool(torch.isfinite(out["logp"]).all())
+          and out["path"].shape == (B, L),
+          f"L={L}: logp not finite or path shape {out['path'].shape}")
+    n_seg = -(-L // LONG_K)
+    check(launches["forward_wide"] == 2 * n_seg
+          and launches["backward"] == n_seg and launches["forward"] == 0,
+          f"L={L}: launches {launches} for {n_seg} segments")
+    copies = out["repeats"].float()
+    iters = 1 if tail else 3
+    ms = time_ms(lambda: da.read_stats_ckpt(m, seqs, lens, segment=LONG_K),
+                 iters=iters, warmup=0 if tail else 1)
+    planes_gb = LONG_K * B * (2 * m.P + 2 * m.nb) * width / 1e9
+    states_mb = n_seg * B * (4 * m.P + 3 * m.nb) * 4 / 1e6
+    # what the two passes must move: pass 2's planes of all L columns and
+    # the states pass 1 keeps
+    batch_bound = (L * B * (2 * m.P + 2 * m.nb) * width
+                   + states_mb * 1e6) / HBM_BYTES_PER_S * 1e3
+    log(f"long-read path L={L}, B={B}, P={m.P}, K={LONG_K}: K {LONG_K} and "
+        f"K {2 * LONG_K} bit-identical; {ms:.1f} ms a batch "
+        f"({B / ms * 1e3:.1f} reads/s); peak device memory "
+        f"{peak / 2**20:.1f} MiB (one segment's planes {planes_gb:.3f} GB, "
+        f"{n_seg} kept states {states_mb:.1f} MB); launches a batch "
+        f"{launches}; repeats decoded {copies.min():.0f}..{copies.max():.0f}"
+        f"; bound of the batch {batch_bound:.4f} ms (bytes: pass 2's planes "
+        f"and the kept states at 3.35 TB/s), reached "
+        f"{batch_bound / ms:.4f}")
+    # the two kernels alone on one segment of the batch
+    stack = m.as_stack()
+    c0 = LONG_K
+    cols = seqs[None, :, c0:c0 + LONG_K].contiguous()
+    _, _, _, _, entry = vf.fused_forward_segment_grouped(
+        stack, seqs[None, :, :c0], lens[None], planes=False)
+    fwd = lambda planes, q=cols: vf.fused_forward_segment_grouped(
+        stack, q, lens[None], False, entry, c0, planes)
+    it = dict(iters=3 if tail else 10, warmup=1)
+    b1_ms, b1_bare_ms = time_ms(lambda: fwd(True), **it), \
+        time_ms(lambda: fwd(False), **it)
+    _, bstate, oMI, oXH, _ = fwd(True)
+    walk = lambda: vf.backward_walk_segment_grouped(
+        stack, lens[None], bstate, oMI, oXH, c0, bstate)
+    b2_wrapper_ms = time_ms(walk, **it)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    b2_ms = launch_ms(walk, flush, iters=10 if tail else 50)
+    del flush
+    bounds = long_read_bounds(m, B, LONG_K, width)
+    log(f"one segment (K={LONG_K}, B={B}, P={m.P}): B1 wide entry "
+        f"{b1_ms:.3f} ms with planes (bound {bounds[0]:.4f} ms, "
+        f"{bounds[3]}), {b1_bare_ms:.3f} ms without (bound "
+        f"{bounds[1]:.4f} ms); "
+        f"{b1_ms / LONG_K * 1e3:.2f} us a column; B2 over the range "
+        f"{b2_ms:.4f} ms alone (one launch between two events, L2 cold), "
+        f"{b2_wrapper_ms:.4f} ms through its wrapper with the host's "
+        f"enqueue (bound {bounds[2]:.5f} ms)")
+    # the plain twins at this very shape, from the same entry state: B1's
+    # twin over the segment's first n columns (the whole segment, or 16
+    # columns of the tail shape) against a kernel launch over the same
+    # columns, planes and exit state; B2's twin over the whole range
+    # against the kernel's path slice and exit state
+    n = 16 if tail else LONG_K
+    head = cols[:, :, :n].contiguous()
+    entry0 = (entry[0][0], entry[1][0])
+    twin_out = {}
+
+    def b1_twin(k):
+        twin_out["b1"] = vf.fused_forward_segment_reference(
+            m, head[0, :, :k], lens, False, entry0, c0)
+
+    b1_twin(2)
+    b1_plain_ms = time_ms(lambda: b1_twin(n), iters=1, warmup=0)
+    t_state, tMI, tXH = twin_out.pop("b1")
+    _, _, kMI, kXH, k_state = fwd(True, head)
+    torch.cuda.synchronize()
+    b1_err = float((k_state[0][0] - t_state[0]).abs().max())
+    check(torch.equal(kMI[0], tMI) and torch.equal(kXH[0], tXH),
+          f"L={L}: B1's wide entry differs from the twin in the planes of "
+          f"columns {c0}..{c0 + n - 1}")
+    check(torch.equal(k_state[0][0], t_state[0])
+          and torch.equal(k_state[1][0], t_state[1]),
+          f"L={L}: B1's wide entry leaves column {c0 + n - 1} in another "
+          f"state than the twin (max |difference| {b1_err})")
+    del kMI, kXH, tMI, tXH
+
+    def b2_twin():
+        twin_out["b2"] = vf.backward_walk_segment_reference(
+            m, lens, bstate[0], oMI[0], oXH[0], c0, bstate[0])
+
+    b2_plain_ms = time_ms(b2_twin, iters=1, warmup=0)
+    seg_t, _, cur_t = twin_out.pop("b2")
+    seg, cur = walk()
+    torch.cuda.synchronize()
+    b2_err = max(int((seg[0] - seg_t).abs().max()),
+                 int((cur[0] - cur_t).abs().max()))
+    check(torch.equal(seg[0], seg_t) and torch.equal(cur[0], cur_t),
+          f"L={L}: B2 over columns {c0}..{c0 + LONG_K - 1} differs from the "
+          f"twin in the path slice or the exit state")
+    log(f"one segment against the plain twins on the card (B={B}, P={m.P}, "
+        f"from the state after column {c0 - 1}): B1's wide entry over {n} "
+        f"columns, planes and exit state bit-identical (twin "
+        f"{b1_plain_ms:.0f} ms for the {n} columns); B2 over the "
+        f"{LONG_K}-column range, path slice and exit state bit-identical "
+        f"(twin {b2_plain_ms:.0f} ms)")
+    return {"ms_batch": ms, "batch_bound_ms": batch_bound,
+            "peak_mib": peak / 2**20, "launches": launches,
+            "b1_ms": b1_ms, "b1_bare_ms": b1_bare_ms, "b2_ms": b2_ms,
+            "b2_wrapper_ms": b2_wrapper_ms,
+            "b1_bound_ms": bounds[0], "b1_bare_bound_ms": bounds[1],
+            "b2_bound_ms": bounds[2], "b1_bound_by": bounds[3],
+            "b1_err": b1_err, "b2_err": b2_err, "twin_columns": n,
+            "b1_plain_ms": b1_plain_ms, "b2_plain_ms": b2_plain_ms}
+
+
+def phase_local_align(dev, kernels):
+    """local_align against its plain version on 3,000-base and
+    12,288-base reads, forward and reversed: exact; timed."""
+    from advntr_tpu_torch.ops import align
+    out = {}
+    for L, B in ((3008, 64), (12288, 16)):
+        rng = np.random.default_rng(L)
+        reads = rng.integers(0, 4, (B, L)).astype(np.int8)
+        probe = rng.integers(0, 4, 100).astype(np.int8)
+        lengths = rng.integers(2000, L + 1, B).astype(np.int32)
+        lengths[:2] = [L, 1]
+        for i in range(2, B):       # a noisy copy of the probe in each read
+            at = int(rng.integers(0, lengths[i] - 100))
+            reads[i, at:at + 100] = probe
+            flips = rng.random(100) < 0.08
+            reads[i, at:at + 100][flips] = rng.integers(0, 4, flips.sum())
+        rev = np.stack([np.concatenate([row[:n][::-1], row[n:]])
+                        for row, n in zip(reads, lengths)])
+        err = 0
+        for name, r, p in (("forward", reads, probe),
+                           ("reversed", rev, probe[::-1].copy())):
+            args = [torch.as_tensor(x, device=dev)
+                    for x in (r, lengths, p)]
+            got = align.local_align_batch(*args)
+            t0 = time.perf_counter()
+            want = align.local_align_batch_reference(*args)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            err = max(err, *(int((g - w).abs().max())
+                             for g, w in zip(got, want)))
+            check(torch.equal(got[0], want[0])
+                  and torch.equal(got[1], want[1]),
+                  f"local_align differs from its plain version at L={L}, "
+                  f"{name}")
+            check(int(got[0][2:].min()) > 50, "local_align found no probe")
+        ms = time_ms(lambda: align.local_align_batch(*args))
+        active = int(lengths.sum())
+        bound = max((active + 12 * B + 100) / HBM_BYTES_PER_S,
+                    12 * 100 * active / F32_OPS_PER_S) * 1e3
+        out[L] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "B": B,
+                  "err": err}
+        log(f"local_align: B={B}, L={L}, probe 100: (score, end) equal to "
+            f"the plain scan, forward and reversed; kernel {ms:.3f} ms, "
+            f"plain scan on the card {plain_ms:.0f} ms, bound "
+            f"{bound:.5f} ms (operations)")
+    return out
+
+
+def phase_pacbio_cli(kernels):
+    """``genotype -p -f`` on the synthetic PacBio panel, on the card and
+    with the twins on the CPU: the same text, every locus."""
+    from advntr_tpu_torch.engine import device_analytics as da
+    from advntr_tpu_torch.synthetic import write_pacbio_panel
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pacbio_")
+    ckpt_calls = []
+    orig = da.read_stats_ckpt
+
+    def counted(model, seqs, lengths, **kw):
+        ckpt_calls.append((tuple(seqs.shape), model.P))
+        return orig(model, seqs, lengths, **kw)
+
+    da.read_stats_ckpt = counted
+    try:
+        db, fa, truth, long_vids = write_pacbio_panel(tmp, n_loci=4,
+                                                      coverage=10)
+
+        def argv(wd, device, vids=None):
+            os.makedirs(wd, exist_ok=True)
+            out = ["genotype", "-p", "-f", fa, "-m", db,
+                   "--working_directory", wd, "--disable_logging", "-o",
+                   os.path.join(wd, "out.txt"), "--device", device]
+            return out + (["-vid", ",".join(map(str, vids))] if vids else [])
+
+        # the long-read main path: every kernel count starts at 0 here
+        kernels.reset_launches()
+        reset_stages()
+        text, secs = run_cli(argv(os.path.join(tmp, "cuda"), "cuda"))
+        launches = dict(kernels.LAUNCHES)
+        log(f"PacBio panel (cuda): launches {launches}; checkpointed calls "
+            f"(batch shape, struct P) {ckpt_calls}; stages: "
+            f"{stage_totals()}")
+        for k in ("forward", "forward_wide", "backward", "local_align"):
+            check(launches[k] > 0,
+                  f"kernel {k} never launched on the long-read path")
+        check(len(ckpt_calls) >= 1
+              and all(shape[1] > 2048 and P > 1024
+                      for shape, P in ckpt_calls),
+              f"the long-tract locus did not take the checkpointed path: "
+              f"{ckpt_calls}")
+        lines = text.split()
+        calls = dict(zip(lines[0::2], lines[1::2]))
+        wrong = {v: (calls.get(str(v)), ab) for v, ab in truth.items()
+                 if calls.get(str(v)) != "%d/%d" % ab}
+        check(not wrong, f"PacBio panel: wrong calls {wrong}")
+        n_cuda = len(ckpt_calls)
+        cpu_text, cpu_secs = run_cli(argv(os.path.join(tmp, "cpu"), "cpu"))
+        check(cpu_text == text,
+              f"PacBio panel: --device cuda gives {text.split()} and "
+              f"--device cpu {cpu_text.split()}")
+        check(len(ckpt_calls) == 2 * n_cuda,
+              "PacBio panel: --device cpu took the checkpointed path "
+              f"{len(ckpt_calls) - n_cuda} times, --device cuda {n_cuda}")
+        log(f"PacBio panel: {len(truth)}/{len(truth)} loci equal to the "
+            f"simulated genotype ({calls}), long-tract locus {long_vids} "
+            f"through the checkpointed path; cuda == cpu text on every "
+            f"locus, the long-tract one included (the twins by segments, "
+            f"{cpu_secs:.1f} s); {secs:.1f} s on the card, host model "
+            f"builds included")
+        return launches
+    finally:
+        da.read_stats_ckpt = orig
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def run_cli(argv) -> tuple[str, float]:
     from advntr_tpu_torch import cli
     t0 = time.perf_counter()
@@ -652,8 +1140,9 @@ def phase_end_to_end(kernels, profile: bool):
                 log(f"panel cold (cuda) stages: {stage_totals()}")
         launches = dict(kernels.LAUNCHES)
         log(f"end to end (cuda): launches {launches}")
-        for k, n in launches.items():
-            check(n > 0, f"kernel {k} never launched on the main path")
+        for k in ILLUMINA_KERNELS:
+            check(launches[k] > 0,
+                  f"kernel {k} never launched on the main path")
         # warm rerun on the bank the first run wrote (no host model build)
         wd = os.path.join(tmp, "panel_cuda")
         warm_argv = argv(panel_db, panel_bam, wd, "cuda")
@@ -667,7 +1156,8 @@ def phase_end_to_end(kernels, profile: bool):
         warm_launches = dict(kernels.LAUNCHES)
         check(warm == gpu["panel"], "warm panel rerun differs")
         log(f"warm panel: launches {warm_launches} for {PANEL_LOCI} loci")
-        for k, n in warm_launches.items():
+        for k in ILLUMINA_KERNELS:
+            n = warm_launches[k]
             check(0 < n <= MAX_GROUP_LAUNCHES,
                   f"warm panel launched {k} {n} times: once per locus "
                   f"group is at most {MAX_GROUP_LAUNCHES}")
@@ -701,9 +1191,14 @@ def phase_end_to_end(kernels, profile: bool):
 
 def main() -> None:
     profile = "--profile" in sys.argv[1:]
+    long_tail = "--long-tail" in sys.argv[1:]
     sources = []
     if "--walk-source" in sys.argv[1:]:
         sources = sys.argv[sys.argv.index("--walk-source") + 1].split(",")
+    forward_sources = []
+    if "--forward-source" in sys.argv[1:]:
+        forward_sources = sys.argv[
+            sys.argv.index("--forward-source") + 1].split(",")
     smi = phase_device()
     dev = torch.device("cuda")
     from advntr_tpu_torch.ops import _kernels
@@ -711,10 +1206,19 @@ def main() -> None:
     m, seqs, lens, (b1_err, b2_err, rs_err) = phase_kernels(dev)
     group = phase_group(dev)
     ms = phase_timing(m, seqs, lens, group)
+    if forward_sources:
+        phase_forward_sources(_kernels, m, seqs, lens, forward_sources)
     walk = phase_walk(_kernels, m, seqs, lens, group, sources)
-    del seqs, lens, group
+    del group
     phase_recruitment(dev)
     launches, warm_launches = phase_end_to_end(_kernels, profile)
+    wide_err = phase_wide_vs_twins(dev, _kernels)
+    long_ = phase_long_reads(dev, _kernels, (m, seqs, lens), LONG_L, LONG_B)
+    del seqs, lens
+    align_ = phase_local_align(dev, _kernels)
+    pacbio_launches = phase_pacbio_cli(_kernels)
+    tail = phase_long_reads(dev, _kernels, None, TAIL_L, TAIL_B, tail=True) \
+        if long_tail else None
     kernels = [
         {"name": "viterbi_forward", "route": "cuda",
          "source": "advntr_tpu_torch/csrc/viterbi_forward.cu",
@@ -741,8 +1245,51 @@ def main() -> None:
          "group_wrapper_ms": ms["group"]["B2"],
          "group_bound_ms": ms["group"]["B2_bound"],
          "group_chain_floor_ms": walk["group"]["floor_ms"],
-         "group_windows_per_read": walk["group"]["windows_mean"]},
+         "group_windows_per_read": walk["group"]["windows_mean"],
+         "long_read_panel_launches": pacbio_launches["backward"],
+         "long_read_launches_a_batch": long_["launches"]["backward"],
+         "long_read_segment_ms": long_["b2_ms"],
+         "long_read_segment_wrapper_ms": long_["b2_wrapper_ms"],
+         "long_read_segment_bound_ms": long_["b2_bound_ms"],
+         "long_read_segment_plain_ms": long_["b2_plain_ms"],
+         "long_read_segment_max_abs_err": long_["b2_err"]},
+        # B1's second entry: every number of the row at one 512-column
+        # segment of the long-read batch (B 64, P 2,560) with planes, the
+        # error and the twin's time over that whole segment; launches: the
+        # long-read panel
+        {"name": "viterbi_forward_wide", "route": "cuda",
+         "source": "advntr_tpu_torch/csrc/viterbi_forward.cu",
+         "replaces": "advntr_tpu/ops/pallas_viterbi.py:554",
+         "launches": pacbio_launches["forward_wide"],
+         "max_abs_err": long_["b1_err"], "ms": long_["b1_ms"],
+         "plain_ms": long_["b1_plain_ms"],
+         "bound_ms": long_["b1_bound_ms"],
+         "bound_by": long_["b1_bound_by"], "library_ms": None,
+         "no_planes_ms": long_["b1_bare_ms"],
+         "no_planes_bound_ms": long_["b1_bare_bound_ms"],
+         "launches_a_batch": long_["launches"]["forward_wide"],
+         "batch_ms": long_["ms_batch"],
+         "batch_bound_ms": long_["batch_bound_ms"],
+         "batch_peak_mib": long_["peak_mib"],
+         "check_shape_max_abs_err": wide_err,
+         "cell_ms": ms["B1_wide_at_cell"][1],
+         "cell_first_entry_ms": ms["B1_wide_at_cell"][0],
+         "long_read_panel_first_entry_launches": pacbio_launches["forward"]},
+        # not a TPU kernel in the reference: the scan of
+        # advntr_tpu/ops/align.py:71 is plain XLA there; at B 64, L 3,008
+        {"name": "local_align", "route": "cuda",
+         "source": "advntr_tpu_torch/csrc/local_align.cu",
+         "replaces": "advntr_tpu/ops/align.py:71",
+         "launches": pacbio_launches["local_align"],
+         "max_abs_err": max(a["err"] for a in align_.values()),
+         "ms": align_[3008]["ms"], "plain_ms": align_[3008]["plain_ms"],
+         "bound_ms": align_[3008]["bound_ms"], "bound_by": "operations",
+         "library_ms": None, "ms_12288": align_[12288]["ms"],
+         "plain_ms_12288": align_[12288]["plain_ms"],
+         "bound_ms_12288": align_[12288]["bound_ms"]},
     ]
+    if tail is not None:
+        kernels[2]["tail"] = tail
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

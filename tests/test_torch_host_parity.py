@@ -63,7 +63,7 @@ INTENDED = {
     "io/bgzf.py": None, "io/bam.py": None, "io/sam.py": None,
     "io/fasta.py": None, "io/cram.py": None,
     "engine/genotype.py": None, "engine/coverage_bias.py": None,
-    "engine/simulate.py": None,
+    "engine/simulate.py": None, "engine/haplotyper.py": None,
 }
 IMPORT_LINE = re.compile(r"^(\s*(?:from|import)\s+)advntr_tpu_torch(?=[\s.])",
                          re.M)
@@ -90,15 +90,18 @@ def test_copy_text_equals_original(module):
 
 def test_seam_functions_equal_their_originals():
     """The two seams of reference_vntr.py (the numpy Viterbi and the
-    segment splitter) are verbatim parts of modules the port does not
-    copy whole."""
+    segment splitter) and the numpy local alignment of ops/align.py are
+    verbatim parts of modules the port does not copy whole."""
     import inspect
 
     from advntr_tpu.engine import analytics as janalytics
     from advntr_tpu.ops import viterbi as jviterbi
     from advntr_tpu_torch.engine import analytics
     from advntr_tpu_torch.ops import viterbi
+    from advntr_tpu.ops import align as jalign
+    from advntr_tpu_torch.ops import align
     pairs = [(viterbi.viterbi_numpy, jviterbi.viterbi_numpy),
+             (align.local_align, jalign.local_align),
              (analytics.is_emitting_state, janalytics.is_emitting_state),
              (analytics.repeating_pattern_lengths,
               janalytics.repeating_pattern_lengths),
@@ -334,3 +337,28 @@ def test_simulated_reads_equal_reference():
     own.left_flanking_region, own.right_flanking_region = left, right
     assert sim.simulate_true_reads(own, 60, random.Random(2)) == \
         jsim.simulate_true_reads(own, 60, random.Random(2))
+
+
+def test_haplotyper_and_host_alignment_equal_reference():
+    """The copied haplotyper and the copied numpy alignment functions give
+    the originals' results on seeded long-read windows."""
+    from advntr_tpu.engine import haplotyper as jhap
+    from advntr_tpu.ops import align as jalign
+    from advntr_tpu_torch.engine import haplotyper as hap
+    from advntr_tpu_torch.ops import align
+    rng = random.Random(12)
+    left = "".join(rng.choice("ACGT") for _ in range(60))
+    right = "".join(rng.choice("ACGT") for _ in range(60))
+    reads = [sim.mutate(left + "CATCAGTTGA" * copies + right, 0.01, rng)
+             for copies in (4, 4, 4, 7, 7, 7, 4, 7)]
+    for k in (1, 2):
+        assert hap.PacBioHaplotyper(reads).get_error_corrected_haplotypes(k) \
+            == jhap.PacBioHaplotyper(reads).get_error_corrected_haplotypes(k)
+    assert hap.PacBioHaplotyper(reads[:1]).get_error_corrected_haplotypes() \
+        == reads[:1]
+    for read in reads[:4]:
+        for probe in (left, right, right[::-1]):
+            assert align.local_align(read, probe) == \
+                jalign.local_align(read, probe)
+    assert align.global_align_score(left, reads[0][:70]) == \
+        jalign.global_align_score(left, reads[0][:70])

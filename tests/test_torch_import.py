@@ -92,10 +92,26 @@ def test_cuda_device_is_explicit():
         resolve_device("mps")
 
 
-@pytest.mark.parametrize("flag,item", [("-p", "A9"), ("-fs", "A10"),
-                                       ("-u", "A10"), ("--em", "A10")])
+@pytest.mark.parametrize("flag,item", [("-fs", "A10"), ("-u", "A10"),
+                                       ("--em", "A10")])
 def test_unported_flags_name_their_roadmap_item(flag, item, tmp_path):
     with pytest.raises(SystemExit) as exc:
         cli.main(["genotype", "-a", str(tmp_path / "x.bam"), flag,
                   "--device", "cpu"])
     assert item in str(exc.value.code)
+
+
+@pytest.mark.parametrize("argv,message", [
+    (["-p"], "No input specified"),
+    (["-f", "reads.fa"], "not supported for Illumina"),
+])
+def test_long_read_flags_are_accepted(argv, message):
+    """-p, -f, --naive and --log_pacbio_reads parse; -p is no longer
+    refused as unported, and a FASTA input still needs -p."""
+    args = cli.build_parser().parse_args(
+        ["genotype", "-p", "-f", "x.fa", "--naive", "--log_pacbio_reads"])
+    assert args.pacbio and args.naive and args.log_pacbio_reads
+    assert "pacbio" not in cli.NOT_PORTED
+    with pytest.raises(SystemExit) as exc:
+        cli.main(["genotype", "--device", "cpu"] + argv)
+    assert message in str(exc.value.code)

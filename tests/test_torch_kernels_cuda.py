@@ -1,6 +1,7 @@
-"""The port's CUDA kernels (B1 forward, B2 backward walk) against their
-plain PyTorch twins on the card, at small sizes, per locus and as groups
-of same-shape loci in one launch.
+"""The port's CUDA kernels (B1 forward with its wide entry, B2 backward
+walk, the batched local alignment) against their plain PyTorch twins on
+the card, at small sizes, per locus, as groups of same-shape loci in one
+launch, and segment by segment with a carried state.
 
 Needs a CUDA device and nvcc; skips elsewhere.  On the GPU host (no jax
 there) run it without the suite's jax conftest:
@@ -250,3 +251,199 @@ def test_grouped_read_stats_on_card_equal_per_locus(cuda):
                                          return_path=True)
         for k, v in one.items():
             assert torch.equal(grouped[k][g], v), (g, k)
+
+
+# ---- segments, the wide entry, local alignment -----------------------------
+
+@pytest.mark.parametrize("origin32", [False, True])
+@pytest.mark.parametrize("case", CASES)
+def test_wide_entry_equals_first_entry(cuda, case, origin32):
+    """The wide entry of B1 on a model the first entry takes: the same
+    best, end states and planes, bit for bit, and each counted as its own
+    launch."""
+    art, sm = locus_model(*case)
+    m = TorchStructModel.from_payload(art, sm, cuda)
+    seqs, lengths = _batch(case, 41, seed=3)
+    lengths[:3] = torch.tensor([1, 2, seqs.shape[1]])
+    seqs, lengths = seqs.to(cuda), lengths.to(cuda)
+    stack = m.as_stack()
+    n0 = dict(_kernels.LAUNCHES)
+    narrow = _kernels.forward(stack, seqs[None], lengths[None], origin32,
+                              wide=False)
+    wide = _kernels.forward(stack, seqs[None], lengths[None], origin32,
+                            wide=True)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["forward"] == n0["forward"] + 1
+    assert _kernels.LAUNCHES["forward_wide"] == n0["forward_wide"] + 1
+    want = vf.fused_forward_reference(m, seqs, lengths, origin32)
+    for a, b, w in zip(narrow, wide, want):
+        assert torch.equal(a, b) and torch.equal(a[0], w)
+
+
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("segment", [3, 64])
+@pytest.mark.parametrize("case", CASES)
+def test_forward_segments_carry_the_twin_state(cuda, case, segment, wide):
+    """Both entries of B1 run segment by segment: each segment's planes
+    and exit state equal the twin's, and the last exit gives the whole
+    read's score and end state; the pass without planes leaves the same
+    states behind."""
+    art, sm = locus_model(*case)
+    m = TorchStructModel.from_payload(art, sm, cuda)
+    stack = m.as_stack()
+    seqs, lengths = _batch(case, 23, seed=5)
+    lengths[:2] = torch.tensor([1, 2])
+    seqs, lengths = seqs.to(cuda), lengths.to(cuda)
+    best, bstate, oMI, oXH = vf.fused_forward_reference(m, seqs, lengths)
+    state = bare = twin = None
+    for c0 in range(0, seqs.shape[1], segment):
+        cols = seqs[:, c0:c0 + segment]
+        b, e, sMI, sXH, state = _kernels.forward_segment(
+            stack, cols[None], lengths[None], False, state, c0, True, wide)
+        _, _, no1, no2, bare = _kernels.forward_segment(
+            stack, cols[None], lengths[None], False, bare, c0, False, wide)
+        twin, _, _ = vf.fused_forward_segment_reference(
+            m, cols, lengths, False, twin, c0, planes=False)
+        assert no1 is None and no2 is None
+        assert torch.equal(sMI[0], oMI[c0:c0 + segment])
+        assert torch.equal(sXH[0], oXH[c0:c0 + segment])
+        for kept in (state, bare):
+            assert torch.equal(kept[0][0], twin[0])
+            assert torch.equal(kept[1][0], twin[1])
+    assert torch.equal(b[0], best) and torch.equal(e[0], bstate)
+
+
+@pytest.mark.parametrize("origin32", [False, True])
+@pytest.mark.parametrize("segment", [3, 64])
+def test_checkpointed_path_on_card_equals_whole_planes(cuda, segment,
+                                                       origin32):
+    """read_stats_ckpt on the card (B1 with the carry, B2 over column
+    ranges) against the whole-plane kernels and the twins on the CPU."""
+    from advntr_tpu_torch.engine import device_analytics as da
+    case = CASES[1]
+    art, sm = locus_model(*case)
+    m = TorchStructModel.from_payload(art, sm, cuda)
+    seqs, lengths = _batch(case, 29, seed=8)
+    lengths[:2] = torch.tensor([1, 2])
+    whole = da.read_stats(m, seqs.to(cuda), lengths.to(cuda),
+                          return_path=True, origin32=origin32)
+    n0 = _kernels.LAUNCHES["backward"]
+    out = da.read_stats_ckpt(m, seqs.to(cuda), lengths.to(cuda),
+                             return_path=True, segment=segment,
+                             origin32=origin32)
+    n_seg = -(-seqs.shape[1] // segment)
+    assert _kernels.LAUNCHES["backward"] == n0 + n_seg
+    cpu = da.read_stats_ckpt(TorchStructModel.from_payload(art, sm, "cpu"),
+                             seqs, lengths, return_path=True,
+                             segment=segment, origin32=origin32)
+    for k, v in whole.items():
+        assert torch.equal(out[k], v), k
+        assert torch.equal(out[k].cpu(), cpu[k]), k
+
+
+def test_wide_model_on_card(cuda):
+    """A model past the first entry's limits (P > 1024, C > 128) and past
+    int16 origins: B1 takes the wide entry by itself, B2 reads its state
+    tables unstaged only past 12,288 states, and whole planes, segments and
+    twins agree bit for bit."""
+    from advntr_tpu_torch.engine import device_analytics as da
+    from advntr_tpu_torch.engine.simulate import mutate
+    units, copies = ["ACGTA"] * 3, 290
+    left, right = rand_seq(7, 60), rand_seq(8, 60)
+    art, sm = locus_model(units, left, right, copies, pos_bucket=128,
+                          unit_bucket=32)
+    m = TorchStructModel.from_payload(art, sm, cuda)
+    assert m.P > _kernels.MAX_THREADS and m.C > _kernels.MAX_UNITS
+    rng = random.Random(3)
+    hap = left + "ACGTA" * 40 + right
+    reads = [mutate(r, 0.05, rng) for r in
+             (hap, hap[10:200], hap[5:150], hap[30:])] + ["A"]
+    rows = [dna.encode(r) for r in reads]
+    batch, lens = dna.pad_batch(rows, pad_to=256, multiple=32)
+    seqs, lengths = (torch.as_tensor(batch, device=cuda),
+                     torch.as_tensor(lens, device=cuda))
+    n0 = dict(_kernels.LAUNCHES)
+    got = vf.fused_forward(m, seqs, lengths)
+    assert _kernels.LAUNCHES["forward_wide"] == n0["forward_wide"] + 1
+    assert _kernels.LAUNCHES["forward"] == n0["forward"]
+    want = vf.fused_forward_reference(m, seqs, lengths)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    path, stats = vf.backward_stats(m, lengths, *want[1:])
+    path_w, stats_w = vf.backward_stats_reference(m, lengths, *want[1:])
+    assert torch.equal(path, path_w) and torch.equal(stats, stats_w)
+    whole = da.read_stats(m, seqs, lengths, return_path=True)
+    out = da.read_stats_ckpt(m, seqs, lengths, return_path=True, segment=64)
+    for k, v in whole.items():
+        assert torch.equal(out[k], v), k
+
+
+def test_walk_reads_unstaged_tables(cuda):
+    """More than MAX_STRUCT states: the walk reads region and unit from
+    device memory.  The model is a small one whose state tables are padded
+    past the limit with states no path visits."""
+    import dataclasses
+    art, sm = locus_model(*CASES[0])
+    m = TorchStructModel.from_payload(art, sm, cuda)
+    seqs, lengths = _batch(CASES[0], 19, seed=2)
+    seqs, lengths = seqs.to(cuda), lengths.to(cuda)
+    _, bstate, oMI, oXH = vf.fused_forward_reference(m, seqs, lengths)
+    path_w, stats_w = vf.backward_stats_reference(m, lengths, bstate, oMI,
+                                                  oXH)
+    stack = m.as_stack()
+    # the walk indexes the tables by state and only their declared length
+    # decides staging, so longer tables with the same leading entries walk
+    # the same paths
+    extra = _kernels.MAX_STRUCT + 1 - stack.region.shape[1]
+    grow = lambda t: torch.cat(
+        [t, torch.zeros(1, extra, dtype=t.dtype, device=cuda)], dim=1)
+    big = dataclasses.replace(stack, region=grow(stack.region),
+                              unit=grow(stack.unit))
+    # the wrapper ties the tables' length to (P, nb), so the C entry point
+    # is called directly here
+    lib = _kernels.build()["viterbi_backward.cu"]
+    path = torch.empty(1, seqs.shape[0], seqs.shape[1], dtype=torch.int32,
+                       device=cuda)
+    stats = torch.empty(1, seqs.shape[0], 16, dtype=torch.int32, device=cuda)
+    l32, b32 = lengths.int().contiguous(), bstate.int().contiguous()
+    code = lib.advntr_viterbi_backward(
+        l32.data_ptr(), b32.data_ptr(), oMI.data_ptr(), oXH.data_ptr(),
+        big.region.data_ptr(), big.unit.data_ptr(), path.data_ptr(),
+        stats.data_ptr(), None, None, 1, seqs.shape[0], seqs.shape[1], m.P,
+        m.nb, big.region.shape[1], 0, vf.MBIT16, 1, 0,
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert code == 0
+    assert torch.equal(path[0], path_w) and torch.equal(stats[0], stats_w)
+
+
+@pytest.mark.parametrize("L,probe_len", [(3008, 100), (12288, 100),
+                                         (512, 128), (256, 7)])
+def test_local_align_kernel_matches_plain(cuda, L, probe_len):
+    """(score, end) of the kernel equal the plain scan's exactly, on
+    ragged reads (lengths 1 and L among them) that carry noisy copies of
+    the probe, in both directions as anchor_probe_batch runs them."""
+    from advntr_tpu_torch.ops import align
+    rng = np.random.default_rng(L + probe_len)
+    B = 12
+    reads = rng.integers(0, 4, (B, L)).astype(np.int8)
+    probe = rng.integers(0, 4, probe_len).astype(np.int8)
+    lengths = rng.integers(probe_len, L + 1, B).astype(np.int32)
+    lengths[:2] = [L, 1]
+    for i in range(2, B):
+        at = int(rng.integers(0, lengths[i] - probe_len + 1))
+        reads[i, at:at + probe_len] = probe
+        flips = rng.random(probe_len) < 0.08
+        reads[i, at:at + probe_len][flips] = rng.integers(0, 4, flips.sum())
+    for r, p in ((reads, probe),
+                 (np.stack([np.concatenate([row[:n][::-1], row[n:]])
+                            for row, n in zip(reads, lengths)]),
+                  probe[::-1].copy())):
+        args = [torch.as_tensor(x, device=cuda) for x in (r, lengths, p)]
+        n0 = _kernels.LAUNCHES["local_align"]
+        score, end = align.local_align_batch(*args)
+        torch.cuda.synchronize()
+        assert _kernels.LAUNCHES["local_align"] == n0 + 1
+        score_w, end_w = align.local_align_batch_reference(*args)
+        assert torch.equal(score, score_w) and torch.equal(end, end_w)
+        assert int(score[2:].min()) > probe_len // 2

@@ -186,8 +186,10 @@ def test_kernel_row_order_matches_tables():
 
 
 def test_kernel_limits_match_wrapper():
-    """The wrapper refuses shapes by the same limits the forward kernel is
-    compiled for: threads per CTA, units per lane of warp 0, rounds."""
+    """The wrapper chooses the forward kernel's entry by the limits its
+    first entry is compiled for (threads per CTA, units per lane of warp
+    0, rounds): a model past any of them takes the wide entry, and only a
+    forced first entry is refused."""
     from advntr_tpu_torch.ops import _kernels
     csrc = Path(smod.__file__).parent.parent / "csrc"
     src = (csrc / "viterbi_forward.cu").read_text()
@@ -197,13 +199,27 @@ def test_kernel_limits_match_wrapper():
     assert 32 * upl == _kernels.MAX_UNITS
     rounds = int(re.search(r"constexpr int MAX_ROUNDS = (\d+);",
                            src).group(1))
+    assert rounds == _kernels.MAX_ROUNDS
     assert (1 << rounds) >= _kernels.MAX_THREADS
     assert {(csrc / name).exists() for name in _kernels.SOURCES} == {True}
+    art, sm = locus_model(["CAGCAG"] * 3, "ACGTTGCA", "TTACGGAT", 3)
+    stack = smod.TorchStructModel.from_payload(art, sm, "cpu").as_stack()
+    assert not _kernels.takes_wide_entry(stack)
+    for wide_shape in (dict(P=_kernels.MAX_THREADS + 128),
+                       dict(C=_kernels.MAX_UNITS + 32),
+                       dict(Wd=torch.zeros(1, rounds + 1, stack.P))):
+        wide = dataclasses.replace(stack, **wide_shape)
+        assert _kernels.takes_wide_entry(wide)
+        with pytest.raises(ValueError, match="first entry"):
+            _kernels.forward(wide, torch.zeros(1, 2, 8, dtype=torch.int8),
+                             torch.ones(1, 2, dtype=torch.int32), wide=False)
 
 
 def test_walk_kernel_limits_match_wrapper():
-    """The wrapper refuses what the walk kernel's shared state table does
-    not hold, and the table fits the 48 KB a CTA gets without asking."""
+    """The walk kernel stages state tables of up to MAX_STRUCT entries,
+    which fit the 48 KB a CTA gets without asking; a larger model is no
+    longer refused (its tables are read from device memory), so the
+    wrapper's checks go on to the next one."""
     from advntr_tpu_torch.ops import _kernels
     csrc = Path(smod.__file__).parent.parent / "csrc"
     src = (csrc / "viterbi_backward.cu").read_text()
@@ -223,5 +239,6 @@ def test_walk_kernel_limits_match_wrapper():
     planes = torch.zeros(1, 8, 2, 2 * tm.P, dtype=torch.int16)
     hub = torch.zeros(1, 8, 2, 2 * tm.nb, dtype=torch.int16)
     ones = torch.ones(1, 2, dtype=torch.int32)
-    with pytest.raises(ValueError, match="struct states"):
+    assert "n_struct <= MAX_STRUCT" in src
+    with pytest.raises(ValueError, match="disagree with"):
         _kernels.backward(stack, ones, ones, planes, hub)

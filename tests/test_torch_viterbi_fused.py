@@ -454,13 +454,14 @@ def test_kernel_wrappers_reject_mismatched_inputs():
 
 @pytest.mark.parametrize("grouped", [False, True])
 def test_reads_past_the_column_limit_raise(grouped):
-    """One limit holds for the per-locus and the grouped paths: reads
-    longer than MAX_COLUMNS need the checkpointed traceback."""
+    """One limit holds for the whole-plane pipeline, per locus and
+    grouped: reads longer than MAX_COLUMNS are the checkpointed
+    traceback's, and the error names it."""
     art, sm, pm, tm = _models(CASES[0])
     L = vf.MAX_COLUMNS + 1
     seqs = torch.zeros(2, L, dtype=torch.int8)
     lengths = torch.full((2,), L, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(NotImplementedError, match="viterbi_ckpt"):
         if grouped:
             tda.read_stats_grouped([tm], seqs[None], lengths[None])
         else:
