@@ -14,10 +14,12 @@ Both Viterbi kernels take a group of G same-shape loci in one launch
 (``ops/struct_model.py::StructModelStack``); one locus is G = 1.  Both
 also run on a range of columns with an entry and an exit state
 (``forward_segment``, ``backward_segment``): what the checkpointed
-traceback is made of.  B1 has two entries in one source: one thread per
-match position for models of up to ``MAX_THREADS`` positions, and a wide
-entry, threads striding over the positions with their state in a scratch
-buffer, for any model; ``forward`` chooses by the model's shape.
+traceback is made of.  B1 has two entries in one source: one CTA a read
+with one thread per match position for models of up to ``MAX_THREADS``
+positions, and a wide entry that spreads a read over a thread block
+cluster, each CTA a slice of the positions with its state in its own
+shared memory (``wide_layout``); ``forward`` chooses by the model's shape
+(``takes_wide_entry``).
 
 ``LAUNCHES`` counts the launches of each kernel, so a run can show that it
 went through the kernels.  ``BUILD_LOG`` holds what ``ptxas -v`` said of
@@ -27,6 +29,7 @@ each kernel (registers, shared memory, spills) when this process built.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
 import os
 import shutil
@@ -51,6 +54,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 MAX_THREADS = 1024
 MAX_UNITS = 128
 MAX_ROUNDS = 10
+# the wide entry: at most 16 CTAs a cluster (past 8 the card's
+# non-portable sizes), one or two positions a thread, the 227 KB of shared
+# memory a CTA can have
+WIDE_MAX_CLUSTER = 16
+WIDE_MAX_PPT = 2
+WIDE_MAX_ROUNDS = 15
+# the first rounds of the delete chain run on a halo of the 2^9 - 1
+# positions left of each slice, with block barriers only
+HALO_ROUNDS = 9
+SMEM_MAX = 232448
 MAX_STRUCT = 12288          # B2 stages state tables of up to 2P + nb entries
 MAX_PROBE = 128             # local_align holds the probe four to a lane
 
@@ -117,10 +130,10 @@ def build() -> dict:
         BUILD_LOG = compile_sources(missing)
     libs = {name: ctypes.CDLL(str(out)) for name, out in paths.items()}
     fwd = libs["viterbi_forward.cu"]
-    fwd.advntr_viterbi_forward.argtypes = [_VP] * 23 + [_I] * 13 + [_F, _VP]
+    fwd.advntr_viterbi_forward.argtypes = [_VP] * 22 + [_I] * 17 + [_F, _VP]
     fwd.advntr_viterbi_forward.restype = _I
-    fwd.advntr_forward_wide_scratch_words.argtypes = [_I] * 3
-    fwd.advntr_forward_wide_scratch_words.restype = ctypes.c_size_t
+    fwd.advntr_forward_wide_max_clusters.argtypes = [_I] * 6 + [_VP]
+    fwd.advntr_forward_wide_max_clusters.restype = _I
     fwd.advntr_error_string.argtypes = [_I]
     fwd.advntr_error_string.restype = ctypes.c_char_p
     fn = libs["viterbi_backward.cu"].advntr_viterbi_backward
@@ -177,6 +190,81 @@ def takes_wide_entry(s) -> bool:
             or s.Wd.shape[1] > MAX_ROUNDS)
 
 
+@dataclasses.dataclass(frozen=True)
+class WideLayout:
+    """How B1's wide entry spreads a read: a cluster of ``cluster`` CTAs of
+    ``threads`` threads, each CTA a slice of ``slice`` = ``ppt`` x
+    ``threads`` consecutive positions (the last one may hold fewer), with
+    ``smem`` bytes of shared memory."""
+    cluster: int
+    threads: int
+    slice: int
+    ppt: int
+    smem: int
+
+
+def wide_rounds(P: int, n_rounds_p: int) -> int:
+    """Delete-chain rounds that run: those with 2^r < P."""
+    return sum(1 for r in range(n_rounds_p) if (1 << r) < P)
+
+
+def wide_layout(P: int, nb: int, C: int, n_rounds_p: int, n_rounds_c: int,
+                cluster: int | None = None,
+                ppt: int | None = None) -> WideLayout:
+    """The wide entry's layout for a (P, nb, C) model: the fewest CTAs
+    whose slices of at most ``MAX_THREADS`` positions cover P, rounded up
+    to a warp, up to ``WIDE_MAX_CLUSTER``; past that, more than one
+    position a thread.  ``cluster`` and ``ppt`` ask for a cluster size and
+    positions a thread instead (the layout may come out with fewer CTAs
+    where slices round up to a warp).  The shared bytes are the kernel's
+    carve (csrc/viterbi_forward.cu::wide_smem_bytes, which the launch
+    checks): 72 bytes a position of the slice, 16 a unit, and 24 more a
+    unit once the unit chain's buffers outgrow the rounds' (C past about
+    2/3 of the slice and halo); up to ``MAX_UNITS`` units the unit tables
+    are staged too.  So with motifs of 6 bp and more (the
+    reference's VNTR database keeps no shorter ones) every model of up to
+    16 x 1,024 positions fits.  Raises ValueError for a shape the entry
+    does not take."""
+    _require(P >= 1 and C >= 1 and C + 2 <= nb,
+             f"B1's wide entry takes P >= 1, C >= 1 and C + 2 <= nb; got "
+             f"P={P}, C={C}, nb={nb}")
+    n = cluster or min(-(-P // MAX_THREADS), WIDE_MAX_CLUSTER)
+    _require(1 <= n <= WIDE_MAX_CLUSTER,
+             f"a cluster holds 1 to {WIDE_MAX_CLUSTER} CTAs; got {n}")
+    per = -(-P // n)
+    ppt = ppt or -(-per // MAX_THREADS)
+    threads = 32 * -(-per // (32 * ppt))
+    width = threads * ppt
+    n = -(-P // width)
+    rounds = wide_rounds(P, n_rounds_p)
+    extra = max(rounds - MAX_ROUNDS, 0)
+    halo_rounds = min(rounds, HALO_ROUNDS)
+    halo = (1 << halo_rounds) - 1
+    staged = (1 + n_rounds_c) * C + 7 * nb if C <= MAX_UNITS else 0
+    smem = (8 * (7 * width + 2 + max(2 * (halo + width), 3 * C + 1))
+            + 4 * (extra * width + (halo_rounds + 4) * halo + 3 * nb + C
+                   + staged + 3 * 32 + 2 * WIDE_MAX_CLUSTER))
+    _require(1 <= ppt <= WIDE_MAX_PPT and threads <= MAX_THREADS
+             and rounds <= WIDE_MAX_ROUNDS and smem <= SMEM_MAX,
+             f"B1's wide entry takes up to {WIDE_MAX_PPT} positions a "
+             f"thread in {WIDE_MAX_CLUSTER} CTAs of up to {MAX_THREADS} "
+             f"threads, {WIDE_MAX_ROUNDS} rounds and {SMEM_MAX} bytes of "
+             f"shared memory a CTA; P={P}, C={C}, nb={nb} need {ppt} a "
+             f"thread in CTAs of {threads}, {rounds} rounds and {smem} bytes")
+    return WideLayout(n, threads, width, ppt, smem)
+
+
+def wide_max_clusters(lay: WideLayout, C: int, origin32: bool) -> int:
+    """How many clusters of the layout ``lay`` (a model of C units) the
+    card holds at once, as cudaOccupancyMaxActiveClusters reckons it."""
+    out = ctypes.c_int(0)
+    code = build()["viterbi_forward.cu"].advntr_forward_wide_max_clusters(
+        C, int(origin32), lay.cluster, lay.slice, lay.threads, lay.smem,
+        ctypes.byref(out))
+    _check(code, "cudaOccupancyMaxActiveClusters on viterbi_forward_wide")
+    return out.value
+
+
 def state_widths(s) -> tuple[int, int]:
     """Widths of a forward state's float and integer parts."""
     return 3 * s.P + 2 * s.nb, s.P + s.nb
@@ -195,6 +283,9 @@ def _launch_forward(s, seqs, lengths, origin32, state, t0, planes,
     _require(C >= 1 and C + 2 <= nb and (wide or 32 <= P and nb <= P),
              f"B1 takes C >= 1, C + 2 <= nb and, in its first entry, "
              f"32 <= P and nb <= P; got P={P}, C={C}, nb={nb}")
+    lay = WideLayout(0, 0, 0, 0, 0)
+    if wide:
+        lay = wide_layout(P, nb, C, s.Wd.shape[1], s.Wu.shape[1])
     _require(seqs.dim() == 3 and seqs.shape[0] == s.G,
              f"seqs must be (G={s.G}, B, L); got {tuple(seqs.shape)}")
     G, B, L = seqs.shape
@@ -228,10 +319,6 @@ def _launch_forward(s, seqs, lengths, origin32, state, t0, planes,
     if B == 0 or L == 0:
         _require(not keep_state, "an empty batch has no state to keep")
         return best, bstate, oMI, oXH, exit_
-    scratch = None
-    if wide:
-        words = lib.advntr_forward_wide_scratch_words(P, nb, C)
-        scratch = torch.empty(G * B, words, dtype=torch.float32, device=dev)
     opt = lambda x: None if x is None else _ptr(x)
     code = lib.advntr_viterbi_forward(
         _ptr(seqs8), _ptr(lengths32), _ptr(s.pos), _ptr(s.blk), _ptr(s.eM),
@@ -239,10 +326,10 @@ def _launch_forward(s, seqs, lengths, origin32, state, t0, planes,
         _ptr(s.exp_base), _ptr(s.unit_last), _ptr(s.suffix_last),
         _ptr(s.r_unit), opt(oMI), opt(oXH), _ptr(best), _ptr(bstate),
         opt(state and state[0]), opt(state and state[1]),
-        opt(exit_ and exit_[0]), opt(exit_ and exit_[1]), opt(scratch),
+        opt(exit_ and exit_[0]), opt(exit_ and exit_[1]),
         G, B, L, P, nb, C, s.Wd.shape[1], s.Wu.shape[1],
         int(odt == torch.int32), mbit, int(t0), int(planes), int(wide),
-        LN05, _stream(dev))
+        lay.cluster, lay.slice, lay.threads, lay.smem, LN05, _stream(dev))
     _check(code, "viterbi_forward")
     LAUNCHES["forward_wide" if wide else "forward"] += 1
     return best, bstate, oMI, oXH, exit_
@@ -251,9 +338,9 @@ def _launch_forward(s, seqs, lengths, origin32, state, t0, planes,
 def forward(s, seqs, lengths, origin32: bool = False, wide=None):
     """Launch B1 (csrc/viterbi_forward.cu) once for the G loci of the
     stack ``s`` over whole reads: seqs (G, B, L), lengths (G, B), CUDA
-    tensors.  ``wide`` forces an entry (None: by the model's shape).
-    Returns best (G, B), bstate (G, B), oMI (G, L, B, 2P), oXH
-    (G, L, B, 2nb)."""
+    tensors.  ``wide`` forces an entry (None: by the model's shape; the
+    wide entry's layout is ``wide_layout``'s).  Returns best (G, B),
+    bstate (G, B), oMI (G, L, B, 2P), oXH (G, L, B, 2nb)."""
     return _launch_forward(s, seqs, lengths, origin32, None, 0, True, False,
                            wide)[:4]
 

@@ -88,9 +88,19 @@ the twin and times it alone in turns with the committed kernel.
 
     python3 chip_smoke.py --forward-source FILE[,FILE...]
 
-does the same for B1's whole-read launch at the cell: each FILE must export
-the committed csrc/viterbi_forward.cu's C entry point (an earlier version
-needs the later arguments added to its signature).
+does the same for B1: each FILE must export the committed
+csrc/viterbi_forward.cu's C entry point (an earlier version needs its
+signature brought up to date).  It is held to the committed kernel and
+timed in turns with it at the cell (the whole-read launch, and the wide
+entry forced onto the cell's model), at one segment of the long-read
+batch (the wide entry with and without planes) and on the whole batch;
+under --long-tail at the tail's segment too.
+
+    python3 chip_smoke.py --forward-variant FILE[,FILE...]
+
+times sources whose answers differ by design (the kernel with one part
+left out, to see what that part costs) at the long-read segment, in
+turns, without holding them to anything.
 
 The Illumina path (phase 5) and the long-read path (phase 7) are each
 driven with every launch count set to 0 just before and read just after.
@@ -440,7 +450,8 @@ def phase_timing(m, seqs, lens, group):
     w2, f2 = time_ms(wide, iters=5, warmup=1), time_ms(first)
     ms["B1_wide_at_cell"] = (min(f1, f2), min(w1, w2))
     log(f"timing B1 at the cell, entry by entry: first {min(f1, f2):.3f} ms, "
-        f"wide {min(w1, w2):.3f} ms (bit-identical results)")
+        f"wide {min(w1, w2):.3f} ms (bit-identical results); the wide "
+        f"entry at {wide_occupancy(_kernels, m)[2]}")
     cell = bounds_ms(TorchStructModel.stack([m]), seqs[None], lens[None])
     ms["bound"] = {"B1": cell[:2], "B2": cell[2:]}
     log(f"bound at the cell: B1 {cell[0]:.4f} ms ({cell[1]}), reached "
@@ -460,17 +471,19 @@ def phase_timing(m, seqs, lens, group):
     return ms
 
 
-def phase_forward_sources(kernels, m, seqs, lens, sources):
-    """B1's whole-read launch at the cell from other CUDA sources with the
-    committed kernel's C entry point, held equal to the committed kernel's
-    results and timed in turns with it, through the same wrapper."""
+def forward_builds(kernels, sources, variants):
+    """Build the other CUDA sources with B1's C entry point, all compilers
+    at once: {name: CDLL}, the committed library first.  ``variants`` are
+    sources whose results differ by design (a part of the kernel left out
+    to time what it costs): they are timed, never held to the committed
+    kernel."""
     import ctypes
     libs = kernels.build()
     name = "viterbi_forward.cu"
     builds = {"committed": libs[name]}
     jobs = [(os.path.abspath(src),
              kernels.BUILD_DIR / f"libforward_alt{i}.so")
-            for i, src in enumerate(sources)]
+            for i, src in enumerate(sources + variants)]
     kernels.compile_sources(jobs)
     for src, out in jobs:
         lib = ctypes.CDLL(str(out))
@@ -478,32 +491,106 @@ def phase_forward_sources(kernels, m, seqs, lens, sources):
             libs[name].advntr_viterbi_forward.argtypes
         lib.advntr_viterbi_forward.restype = ctypes.c_int
         builds[os.path.relpath(src)] = lib
-    stack = m.as_stack()
+    return builds, {os.path.relpath(src) for src in variants}
 
-    def forward(build):
-        libs[name] = builds[build]
-        try:
-            return kernels.forward(stack, seqs[None], lens[None])
-        finally:
-            libs[name] = builds["committed"]
 
-    want = forward("committed")
-    for build in list(builds)[1:]:
-        got = forward(build)
-        torch.cuda.synchronize()
-        check(all(torch.equal(g, w) for g, w in zip(got, want)),
-              f"{build} differs from the committed B1 at the cell")
-    del want
-    # in turns: every build, then every build again in reverse, twice
+def with_build(kernels, builds, build, fn):
+    """``fn()`` with B1's library swapped for ``build``'s."""
+    libs = kernels.build()
+    libs["viterbi_forward.cu"] = builds[build]
+    try:
+        return fn()
+    finally:
+        libs["viterbi_forward.cu"] = builds["committed"]
+
+
+def in_turns(builds, runs, iters):
+    """{(run, build): [ms, ...]}: every build, then every build again in
+    reverse, twice, each run timed as the median of ``iters``."""
     order = (list(builds) + list(builds)[::-1]) * 2
     times = {}
     for build in order:
-        times.setdefault(build, []).append(
-            time_ms(lambda: forward(build), iters=20))
-    for build, ts in times.items():
-        log(f"B1 whole reads at the cell: {build} "
-            + ", ".join(f"{t:.4f}" for t in ts) + " ms (medians of 20, in "
-            "turns)")
+        for run, fn in runs.items():
+            times.setdefault((run, build), []).append(
+                time_ms(lambda: fn(build), iters=iters[run], warmup=1))
+    return times
+
+
+def phase_forward_sources(kernels, builds, variants, m, seqs, lens):
+    """B1 at the cell from other CUDA sources with the committed kernel's C
+    entry point: the whole-read launch (first entry) and the wide entry
+    forced onto the cell's model, held equal to the committed kernel's
+    results and timed in turns with it, through the same wrapper."""
+    stack = m.as_stack()
+    checked = {b: lib for b, lib in builds.items() if b not in variants}
+    runs = {
+        "first": lambda b: with_build(kernels, builds, b, lambda: (
+            kernels.forward(stack, seqs[None], lens[None]))),
+        "wide": lambda b: with_build(kernels, builds, b, lambda: (
+            kernels.forward(stack, seqs[None], lens[None], wide=True))),
+    }
+    for run, fn in runs.items():
+        want = fn("committed")
+        for build in list(checked)[1:]:
+            got = fn(build)
+            torch.cuda.synchronize()
+            check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                  f"{build} differs from the committed B1 ({run} entry) at "
+                  f"the cell")
+        del want
+    times = in_turns(checked, runs, {"first": 20, "wide": 5})
+    for (run, build), ts in times.items():
+        log(f"B1 at the cell, {run} entry: {build} "
+            + ", ".join(f"{t:.4f}" for t in ts) + f" ms (medians of "
+            f"{20 if run == 'first' else 5}, in turns)")
+
+
+def phase_wide_sources(kernels, builds, variants, seg):
+    """B1's wide entry from other CUDA sources at one segment of the
+    long-read batch (``seg``, from phase_long_reads): planes and exit state
+    held equal to the committed kernel's (not for ``variants``), timed in
+    turns with and without planes; the whole batch too, for the sources
+    that are held."""
+    from advntr_tpu_torch.engine import device_analytics as da
+    stack, cols, lens, entry, c0 = (seg[k] for k in (
+        "stack", "cols", "lens", "entry", "c0"))
+    m, seqs = seg["model"], seg["seqs"]
+    K = cols.shape[2]
+
+    def fwd(b, planes):
+        return with_build(kernels, builds, b, lambda: (
+            kernels.forward_segment(stack, cols, lens[None], False, entry,
+                                    c0, planes)))
+
+    want = fwd("committed", True)
+    for build in builds:
+        if build == "committed" or build in variants:
+            continue
+        got = fwd(build, True)
+        torch.cuda.synchronize()
+        check(all(torch.equal(g, w) for g, w in zip(got[:4], want[:4]))
+              and all(torch.equal(g, w) for g, w in zip(got[4], want[4])),
+              f"{build}: the wide entry differs from the committed one at "
+              f"the long-read segment")
+    del want
+    runs = {"planes": lambda b: fwd(b, True),
+            "no planes": lambda b: fwd(b, False)}
+    tail = seg["tail"]
+    times = in_turns(builds, runs, {"planes": 3 if tail else 10,
+                                    "no planes": 3 if tail else 10})
+    checked = {b: lib for b, lib in builds.items() if b not in variants}
+    batch = {"batch": lambda b: with_build(kernels, builds, b, lambda: (
+        da.read_stats_ckpt(m, seqs, lens, segment=K)))}
+    times.update(in_turns(checked, batch, {"batch": 1 if tail else 3}))
+    B = cols.shape[1]
+    for (run, build), ts in times.items():
+        what = ("a batch" if run == "batch" else
+                f"a {K}-column segment, {run}")
+        log(f"B1 wide entry (B={B}, P={stack.P}), {what}: {build} "
+            + ", ".join(f"{t:.3f}" for t in ts) + " ms (in turns)"
+            + (f"; {B / min(ts) * 1e3:.1f} reads/s at the best"
+               if run == "batch" else
+               f"; {min(ts) / K * 1e3:.2f} us a column at the best"))
 
 
 def phase_walk(kernels, m, seqs, lens, group, sources):
@@ -753,7 +840,7 @@ def phase_wide_vs_twins(dev, kernels):
     log(f"wide and carried kernels: P={m.P}, C={m.C}, B={len(reads)} ragged, "
         f"L={L}, K={K}: B1's wide entry and B2's ranged walk bit-identical "
         f"to the twins, segment by segment (planes, states, path slices) "
-        f"and as a whole")
+        f"and as a whole; the wide entry at {wide_occupancy(kernels, m)[2]}")
     return err
 
 
@@ -788,6 +875,40 @@ def long_read_bounds(m, B, K, width):
     which = "bytes" if (plane + 2 * state) / HBM_BYTES_PER_S \
         > ops / F32_OPS_PER_S else "operations"
     return with_planes * 1e3, bare * 1e3, walk * 1e3, which
+
+
+def wide_occupancy(kernels, m):
+    """(layout, its clusters the card holds at once, a line to log) of B1's
+    wide entry for the model ``m``."""
+    from advntr_tpu_torch.ops import viterbi_fused as vf
+    lay = kernels.wide_layout(m.P, m.nb, m.C, m.Wd.shape[0], m.Wu.shape[0])
+    origin32 = vf.origin_params(m.P, m.nb)[0] == torch.int32
+    n = kernels.wide_max_clusters(lay, m.C, origin32)
+    return lay, n, (f"P={m.P}, C={m.C}: clusters of {lay.cluster} CTAs of "
+                    f"{lay.threads} threads, {lay.smem} bytes of shared "
+                    f"memory a CTA; the card holds {n} such clusters at once "
+                    f"(cudaOccupancyMaxActiveClusters), {n * lay.cluster} "
+                    f"CTAs")
+
+
+def ptxas_lines(kernels, name: str) -> dict:
+    """{entry function: (registers, spill store bytes, spill load bytes)}
+    from what ptxas -v said of the kernels whose mangled name holds
+    ``name`` when this process built."""
+    import re
+    out, cur = {}, None
+    for line in kernels.BUILD_LOG.splitlines():
+        if "Compiling entry function" in line:
+            cur = line.split("'")[1] if name in line else None
+            if cur:
+                out[cur] = [None, 0, 0]
+        elif cur and "spill stores" in line:
+            nums = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+            out[cur][1:] = [int(x) for x in nums]
+        elif cur and "Used" in line:
+            out[cur][0] = int(re.search(r"Used (\d+) registers",
+                                        line).group(1))
+    return {k: tuple(v) for k, v in out.items()}
 
 
 def phase_long_reads(dev, kernels, cell, L, B, tail=False):
@@ -879,10 +1000,25 @@ def phase_long_reads(dev, kernels, cell, L, B, tail=False):
     b2_ms = launch_ms(walk, flush, iters=10 if tail else 50)
     del flush
     bounds = long_read_bounds(m, B, LONG_K, width)
+    lay, max_clusters, occupancy = wide_occupancy(kernels, m)
+    # the instantiation this model runs: its origin type, positions a
+    # thread and units a lane of warp 0 (0: units over several warps) in
+    # the mangled name
+    upl = -(-m.C // 32) if m.C <= kernels.MAX_UNITS else 0
+    inst = f"I{'i' if width == 4 else 's'}Li{lay.ppt}ELi{upl}E"
+    ptx = [v for k, v in ptxas_lines(kernels, "viterbi_forward_wide_kernel")
+           .items() if inst in k]
+    regs, spill_st, spill_ld = ptx[0] if ptx else (None, None, None)
+    log(f"B1 wide entry layout at P={m.P}, C={m.C}: a cluster of "
+        f"{lay.cluster} CTAs of {lay.threads} threads a read, slices of "
+        f"{lay.slice} positions ({lay.ppt} a thread), {lay.smem} bytes of "
+        f"shared memory a CTA; ptxas: {regs} registers, {spill_st} bytes "
+        f"spill stores, {spill_ld} bytes spill loads; {B} reads take "
+        f"{B * lay.cluster} CTAs; at {occupancy}")
     log(f"one segment (K={LONG_K}, B={B}, P={m.P}): B1 wide entry "
         f"{b1_ms:.3f} ms with planes (bound {bounds[0]:.4f} ms, "
-        f"{bounds[3]}), {b1_bare_ms:.3f} ms without (bound "
-        f"{bounds[1]:.4f} ms); "
+        f"{bounds[3]}, reached {bounds[0] / b1_ms:.4f}), {b1_bare_ms:.3f} "
+        f"ms without (bound {bounds[1]:.4f} ms); "
         f"{b1_ms / LONG_K * 1e3:.2f} us a column; B2 over the range "
         f"{b2_ms:.4f} ms alone (one launch between two events, L2 cold), "
         f"{b2_wrapper_ms:.4f} ms through its wrapper with the host's "
@@ -942,7 +1078,14 @@ def phase_long_reads(dev, kernels, cell, L, B, tail=False):
             "b1_bound_ms": bounds[0], "b1_bare_bound_ms": bounds[1],
             "b2_bound_ms": bounds[2], "b1_bound_by": bounds[3],
             "b1_err": b1_err, "b2_err": b2_err, "twin_columns": n,
-            "b1_plain_ms": b1_plain_ms, "b2_plain_ms": b2_plain_ms}
+            "b1_plain_ms": b1_plain_ms, "b2_plain_ms": b2_plain_ms,
+            "cluster": lay.cluster, "slice": lay.slice,
+            "max_active_clusters": max_clusters,
+            "threads": lay.threads, "smem_bytes": lay.smem,
+            "registers": regs, "spill_bytes": spill_st,
+            "segment": {"stack": stack, "cols": cols, "lens": lens,
+                        "entry": entry, "c0": c0, "model": m, "seqs": seqs,
+                        "tail": tail}}
 
 
 def phase_local_align(dev, kernels):
@@ -1002,8 +1145,13 @@ def phase_pacbio_cli(kernels):
     ckpt_calls = []
     orig = da.read_stats_ckpt
 
+    occupancy = set()
+
     def counted(model, seqs, lengths, **kw):
         ckpt_calls.append((tuple(seqs.shape), model.P))
+        if seqs.is_cuda and (model.P > kernels.MAX_THREADS
+                             or model.C > kernels.MAX_UNITS):
+            occupancy.add(wide_occupancy(kernels, model)[2])
         return orig(model, seqs, lengths, **kw)
 
     da.read_stats_ckpt = counted
@@ -1024,8 +1172,8 @@ def phase_pacbio_cli(kernels):
         text, secs = run_cli(argv(os.path.join(tmp, "cuda"), "cuda"))
         launches = dict(kernels.LAUNCHES)
         log(f"PacBio panel (cuda): launches {launches}; checkpointed calls "
-            f"(batch shape, struct P) {ckpt_calls}; stages: "
-            f"{stage_totals()}")
+            f"(batch shape, struct P) {ckpt_calls}; the wide entry at "
+            f"{'; at '.join(sorted(occupancy))}; stages: {stage_totals()}")
         for k in ("forward", "forward_wide", "backward", "local_align"):
             check(launches[k] > 0,
                   f"kernel {k} never launched on the long-read path")
@@ -1192,22 +1340,24 @@ def phase_end_to_end(kernels, profile: bool):
 def main() -> None:
     profile = "--profile" in sys.argv[1:]
     long_tail = "--long-tail" in sys.argv[1:]
-    sources = []
-    if "--walk-source" in sys.argv[1:]:
-        sources = sys.argv[sys.argv.index("--walk-source") + 1].split(",")
-    forward_sources = []
-    if "--forward-source" in sys.argv[1:]:
-        forward_sources = sys.argv[
-            sys.argv.index("--forward-source") + 1].split(",")
+    flag = lambda name: sys.argv[sys.argv.index(name) + 1].split(",") \
+        if name in sys.argv[1:] else []
+    sources = flag("--walk-source")
+    forward_sources = flag("--forward-source")
+    forward_variants = flag("--forward-variant")
     smi = phase_device()
     dev = torch.device("cuda")
     from advntr_tpu_torch.ops import _kernels
     phase_build(_kernels)
+    builds = variants = None
+    if forward_sources or forward_variants:
+        builds, variants = forward_builds(_kernels, forward_sources,
+                                          forward_variants)
     m, seqs, lens, (b1_err, b2_err, rs_err) = phase_kernels(dev)
     group = phase_group(dev)
     ms = phase_timing(m, seqs, lens, group)
-    if forward_sources:
-        phase_forward_sources(_kernels, m, seqs, lens, forward_sources)
+    if builds:
+        phase_forward_sources(_kernels, builds, variants, m, seqs, lens)
     walk = phase_walk(_kernels, m, seqs, lens, group, sources)
     del group
     phase_recruitment(dev)
@@ -1215,10 +1365,18 @@ def main() -> None:
     wide_err = phase_wide_vs_twins(dev, _kernels)
     long_ = phase_long_reads(dev, _kernels, (m, seqs, lens), LONG_L, LONG_B)
     del seqs, lens
+    if builds:
+        phase_wide_sources(_kernels, builds, variants, long_["segment"])
+    del long_["segment"]
     align_ = phase_local_align(dev, _kernels)
     pacbio_launches = phase_pacbio_cli(_kernels)
-    tail = phase_long_reads(dev, _kernels, None, TAIL_L, TAIL_B, tail=True) \
-        if long_tail else None
+    tail = None
+    if long_tail:
+        tail = phase_long_reads(dev, _kernels, None, TAIL_L, TAIL_B,
+                                tail=True)
+        if builds:
+            phase_wide_sources(_kernels, builds, variants, tail["segment"])
+        del tail["segment"]
     kernels = [
         {"name": "viterbi_forward", "route": "cuda",
          "source": "advntr_tpu_torch/csrc/viterbi_forward.cu",
@@ -1265,6 +1423,10 @@ def main() -> None:
          "plain_ms": long_["b1_plain_ms"],
          "bound_ms": long_["b1_bound_ms"],
          "bound_by": long_["b1_bound_by"], "library_ms": None,
+         "cluster": long_["cluster"], "slice": long_["slice"],
+         "max_active_clusters": long_["max_active_clusters"],
+         "threads": long_["threads"], "smem_bytes": long_["smem_bytes"],
+         "registers": long_["registers"], "spill_bytes": long_["spill_bytes"],
          "no_planes_ms": long_["b1_bare_ms"],
          "no_planes_bound_ms": long_["b1_bare_bound_ms"],
          "launches_a_batch": long_["launches"]["forward_wide"],

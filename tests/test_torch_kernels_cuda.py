@@ -9,6 +9,7 @@ there) run it without the suite's jax conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 """
 
+import functools
 import random
 
 import numpy as np
@@ -164,9 +165,17 @@ def test_read_stats_on_card_equal_cpu(cuda):
                                       err_msg=k)
 
 
+def _ask_layout(monkeypatch, cluster, ppt=None):
+    """Make the wrapper lay the wide entry out with the cluster size and
+    positions a thread asked for."""
+    chosen = _kernels.wide_layout
+    monkeypatch.setattr(_kernels, "wide_layout", functools.partial(
+        chosen, cluster=cluster, ppt=ppt))
+
+
 @pytest.mark.parametrize("units,copies", [(["ACG"] * 3, 40),
                                           (["CAGTT"] * 3, 7)])
-def test_kernels_at_odd_shapes(cuda, units, copies):
+def test_kernels_at_odd_shapes(cuda, units, copies, monkeypatch):
     """P not a multiple of 32 (idle threads in the last warp) and more
     than 32 units (the unit chain and its argmax span several warps)."""
     left, right = rand_seq(5, 20), rand_seq(6, 21)
@@ -179,6 +188,15 @@ def test_kernels_at_odd_shapes(cuda, units, copies):
     want = vf.fused_forward_reference(m, seqs, lengths)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+    # the wide entry in clusters of 1 and 3: a short last slice whose last
+    # warp idles past P
+    for cluster in (1, 3):
+        with monkeypatch.context() as mp:
+            _ask_layout(mp, cluster)
+            wide = _kernels.forward(m.as_stack(), seqs[None], lengths[None],
+                                    wide=True)
+        for g, w in zip(wide, want):
+            assert torch.equal(g[0], w)
     path, stats = vf.backward_stats(m, lengths, *want[1:])
     path_w, stats_w = vf.backward_stats_reference(m, lengths, *want[1:])
     assert torch.equal(path, path_w) and torch.equal(stats, stats_w)
@@ -376,6 +394,83 @@ def test_wide_model_on_card(cuda):
     out = da.read_stats_ckpt(m, seqs, lengths, return_path=True, segment=64)
     for k, v in whole.items():
         assert torch.equal(out[k], v), k
+
+
+def _cluster_batches(hap, n_batches, seed):
+    """(seqs (G, B, L), lengths (G, B)): noisy, cut and one-base reads of
+    ``hap``, a batch for each locus of the group, padded to one L."""
+    from advntr_tpu_torch.engine.simulate import mutate
+    rng = random.Random(seed)
+    batches = []
+    for _ in range(n_batches):
+        a = rng.randint(5, 40)
+        reads = [mutate(hap, 0.05, rng), hap[a:], hap[:len(hap) - a],
+                 mutate(hap[a:a + 90], 0.1, rng), "A", hap[:2], hap]
+        batches.append([dna.encode(r) for r in reads])
+    L = max(len(r) for rows in batches for r in rows)
+    padded = [dna.pad_batch(rows, pad_to=L, multiple=32) for rows in batches]
+    return (torch.as_tensor(np.stack([b for b, _ in padded])),
+            torch.as_tensor(np.stack([n for _, n in padded])))
+
+
+@pytest.mark.parametrize("origin32", [False, True])
+@pytest.mark.parametrize("copies,cluster,ppt,flank", [
+    (25, 1, 1, 60), (25, 2, 1, 60), (25, 4, 1, 60), (25, 8, 1, 60),
+    (40, 12, 1, 60), (60, 16, 1, 60), (170, 16, 2, 60), (290, 1, 2, 60),
+    (20, 2, 1, 1100), (20, 3, 1, 1100)])
+def test_wide_entry_cluster_sizes_match_twin(cuda, copies, cluster, ppt,
+                                             flank, origin32, monkeypatch):
+    """B1's wide entry with the cluster size and positions a thread asked
+    for, on a group of two loci: whole reads and 64-column segments (from
+    the entry state, with and without planes) against the twins, bit for
+    bit.  The models put slice edges inside the flanks' delete runs and
+    between unit ends, and the rounds' shifts wrap at P into the last CTA;
+    12 and 16 CTAs are past the portable cluster size (16 also with two
+    positions a thread and 192 units over several warps), one CTA over P
+    1,664 holds two positions a thread, and a 1,100-base flank needs 11
+    doubling rounds: the two past the halo's run across the cluster, the
+    last with its weights in shared memory."""
+    units, left, right = ["ACGTA"] * 3, rand_seq(7, flank), rand_seq(8, 60)
+    art, sm = locus_model(units, left, right, copies, pos_bucket=128,
+                          unit_bucket=32)
+    m = TorchStructModel.from_payload(art, sm, cuda)
+    _ask_layout(monkeypatch, cluster, ppt)
+    lay = _kernels.wide_layout(m.P, m.nb, m.C, m.Wd.shape[0],
+                               m.Wu.shape[0])
+    assert (lay.cluster, lay.ppt) == (cluster, ppt)
+    assert _kernels.wide_rounds(m.P, m.Wd.shape[0]) == (11 if flank > 1024
+                                                        else 6)
+    stack = TorchStructModel.stack([m, m])
+    hap = left + "ACGTA" * min(copies - 5, 60) + right
+    seqs, lengths = _cluster_batches(hap, 2, seed=copies + cluster)
+    seqs, lengths = seqs.to(cuda), lengths.to(cuda)
+    n0 = _kernels.LAUNCHES["forward_wide"]
+    got = _kernels.forward(stack, seqs, lengths, origin32, wide=True)
+    assert _kernels.LAUNCHES["forward_wide"] == n0 + 1
+    for g in range(2):
+        want = vf.fused_forward_reference(m, seqs[g], lengths[g], origin32)
+        for x, w in zip(got, want):
+            assert x[g].dtype == w.dtype and torch.equal(x[g], w)
+    state = bare = None
+    twins = [None, None]
+    for c0 in range(0, seqs.shape[2], 64):
+        cols = seqs[:, :, c0:c0 + 64].contiguous()
+        out = _kernels.forward_segment(stack, cols, lengths, origin32, state,
+                                       c0, True, wide=True)
+        no = _kernels.forward_segment(stack, cols, lengths, origin32, bare,
+                                      c0, False, wide=True)
+        state, bare = out[4], no[4]
+        assert no[2] is None and no[3] is None
+        for g in range(2):
+            twins[g], tMI, tXH = vf.fused_forward_segment_reference(
+                m, cols[g], lengths[g], origin32, twins[g], c0)
+            assert torch.equal(out[2][g], tMI) and torch.equal(out[3][g], tXH)
+            for kept in (state, bare):
+                assert torch.equal(kept[0][g], twins[g][0])
+                assert torch.equal(kept[1][g], twins[g][1])
+    for g in range(2):
+        assert torch.equal(out[0][g], got[0][g])
+        assert torch.equal(out[1][g], got[1][g])
 
 
 def test_walk_reads_unstaged_tables(cuda):
