@@ -94,8 +94,15 @@
 //     bytes of shared memory a unit: a unit then costs 16 (the hubs, their
 //     origins, I0, an index), as the unit chain's buffers share the rounds'
 //     buffers, free once the chain is done, up to C of about 2(W + H) / 3,
-//     and 40 past it; staged, C was capped near 1,060 at W = 1,024
-//     (ops/_kernels.py::wide_layout holds the limits);
+//     and 40 past it.  Where even those do not fit beside the slice (past
+//     16 x 1,024 positions, two positions a thread, with motifs under
+//     about 7.5 bp), each CTA keeps the per-unit and per-block arrays (the
+//     unit chain's buffers, the gathered block ends, I0, the hubs and
+//     their origins) in its own slice of a scratch buffer in device
+//     memory that the wrapper allocates, read through L1, and the units
+//     run over several warps; every other array stays in shared memory,
+//     and a model whose arrays fit keeps the shared-memory build
+//     (ops/_kernels.py::wide_layout decides, and holds the limits);
 //   - the state in each CTA's shared memory; a slice's last position hands
 //     its new (M, I) and its chain value to the next CTA's edge words (the
 //     last CTA to the first: the roll's wrap at P);
@@ -177,6 +184,9 @@ struct FwdArgs {
   int t0;                      // the read column of seqs[.., 0]
   int planes;                  // 0: write no origin planes
   float ln05;
+  // wide entry, where the per-unit arrays do not fit in shared memory:
+  // (G, B, cl_n) slices of wide_unit_words(C, nb) 64-bit words
+  float2* uscr;
 };
 
 // tropical (max, origin) combine: the incumbent keeps ties
@@ -579,6 +589,7 @@ constexpr int WIDE_MAX_PPT = 2;        // positions a thread
 constexpr int WIDE_MAX_ROUNDS = 15;    // k < P <= 16 * 1024 * 2
 constexpr int WIDE_MAX_WARPS = 32;
 constexpr int HALO_ROUNDS = 9;         // rounds run on the halo, locally
+constexpr size_t WIDE_SMEM_MAX = 232448;   // shared bytes a CTA can have
 
 // delete-chain rounds that run (k = 2^r < P), and those past the
 // MAX_ROUNDS a thread holds in registers, whose weights stay in shared
@@ -598,24 +609,36 @@ __host__ __device__ inline int wide_rounds(int P, int n_rounds_p) {
 // halo's round weights and tables, I0, the hubs and their origins, the
 // units' own indices, for C <= 32 * MAX_UPL the staged tables: unit_last,
 // Wu, three block rows and eI0 by base; the warp and cluster reductions).
-// ops/_kernels.py::wide_layout computes the same number; the entry point
-// refuses a launch where the two differ.
+// With `units_off` the per-unit and per-block arrays are in device memory
+// (wide_unit_words) and none of them is carved.  ops/_kernels.py::
+// wide_layout computes the same number; the entry point refuses a launch
+// where the two differ.
 __host__ __device__ inline size_t wide_smem_bytes(int W, int P, int nb,
                                                   int C, int n_rounds_p,
-                                                  int n_rounds_c) {
+                                                  int n_rounds_c,
+                                                  bool units_off) {
   const int r = wide_rounds(P, n_rounds_p);
   const size_t xr = r > MAX_ROUNDS ? r - MAX_ROUNDS : 0;
   const size_t rh = r < HALO_ROUNDS ? r : HALO_ROUNDS;
   const size_t H = ((size_t)1 << rh) - 1;
   const size_t rounds_buf = 2 * (H + (size_t)W);
-  const size_t unit_buf = 3 * (size_t)C + 1;
-  const size_t staged = C <= 32 * MAX_UPL
+  const size_t unit_buf = units_off ? 0 : 3 * (size_t)C + 1;
+  const size_t units = units_off ? 0 : 3 * (size_t)nb + (size_t)C;
+  const size_t staged = !units_off && C <= 32 * MAX_UPL
                             ? (size_t)(1 + n_rounds_c) * C + 7 * (size_t)nb
                             : 0;
   return 8 * (7 * (size_t)W + 2 +
               (rounds_buf > unit_buf ? rounds_buf : unit_buf)) +
-         4 * (xr * W + (rh + 4) * H + 3 * (size_t)nb + (size_t)C + staged +
+         4 * (xr * W + (rh + 4) * H + units + staged +
               3 * WIDE_MAX_WARPS + 2 * WIDE_MAX_CLUSTER);
+}
+
+// 64-bit words of device memory a CTA keeps the per-unit and per-block
+// arrays in where they do not fit in shared memory: the unit chain's two
+// buffers (2C), the block ends (C + 1), then I0, the hubs and their
+// origins (nb 32-bit words each)
+__host__ __device__ inline size_t wide_unit_words(int C, int nb) {
+  return 3 * (size_t)C + 1 + (3 * (size_t)nb + 1) / 2;
 }
 
 __device__ __forceinline__ void cluster_sync() {
@@ -658,8 +681,10 @@ struct WidePos {
 };
 
 // UPL: units a lane of warp 0 takes (C <= 32 * UPL), as in the first
-// entry; 0 spreads the units over as many warps as C needs
-template <typename OT, int PPT, int UPL>
+// entry; 0 spreads the units over as many warps as C needs.  UNITS_OFF:
+// the per-unit and per-block arrays are in this CTA's slice of a.uscr
+// (with UPL 0)
+template <typename OT, int PPT, int UPL, bool UNITS_OFF>
 __global__ void __launch_bounds__(1024, 1)
 viterbi_forward_wide_kernel(const FwdArgs a) {
   const int P = a.P, nb = a.nb, C = a.C, L = a.L;
@@ -698,10 +723,16 @@ viterbi_forward_wide_kernel(const FwdArgs a) {
                                          // new (M, I) and chain value
   float2* Dr = edge + 2;                 // 2(H + W): the rounds' buffers,
                                          // halo then slice; once the rounds
-  float2* ub = Dr;                       // are done, 2C: the unit chain's
-  float2* qe = ub + 2 * C;               // buffers, C + 1: the block ends
-                                         // of the units and the suffix
-  const int n_dr = 2 * WH > 3 * C + 1 ? 2 * WH : 3 * C + 1;
+                                         // are done, the unit arrays below
+  // the per-unit and per-block arrays: after the rounds' buffers in shared
+  // memory, or this CTA's own slice of the scratch buffer
+  float2* const uarr =
+      UNITS_OFF ? a.uscr + (read * n + rank) * wide_unit_words(C, nb) : Dr;
+  float2* ub = uarr;                     // 2C: the unit chain's buffers
+  float2* qe = ub + 2 * C;               // C + 1: the block ends of the
+                                         // units and the suffix
+  const int n_dr =
+      UNITS_OFF || 2 * WH > 3 * C + 1 ? 2 * WH : 3 * C + 1;
   float* wdx = (float*)(Dr + n_dr);      // rounds past MAX_ROUNDS x W
   const int xr = rounds > MAX_ROUNDS ? rounds - MAX_ROUNDS : 0;
   float* wh = wdx + xr * W;              // rh x H: the halo's weights
@@ -709,8 +740,9 @@ viterbi_forward_wide_kernel(const FwdArgs a) {
   float* hidw = hmd + H;
   float* hi0d = hidw + H;
   int* hblk = (int*)(hi0d + H);
-  float* I0ns = (float*)(hblk + H);      // nb each: I0, the hubs and their
-  float* hubs = I0ns + nb;               // origins
+  float* I0ns = UNITS_OFF ? (float*)(qe + C + 1)   // nb each: I0, the hubs
+                          : (float*)(hblk + H);    // and their origins
+  float* hubs = I0ns + nb;
   int* hubpos = (int*)(hubs + nb);
   int* idu = hubpos + nb;                // C: unit c's index in qe, c
   // warp 0's unit section (UPL > 0) reads its tables from shared memory,
@@ -720,7 +752,9 @@ viterbi_forward_wide_kernel(const FwdArgs a) {
   float* Wu_s = (float*)(uls_s + C);     // n_rounds_c x C
   float* blk_s = Wu_s + a.n_rounds_c * C;   // 3 x nb: three block rows
   float* eI0_s = blk_s + 3 * nb;         // 4 x nb: eI0[base][block]
-  float* redv = staged ? eI0_s + 4 * nb : (float*)uls_s;   // WIDE_MAX_WARPS
+  float* redv = staged      ? eI0_s + 4 * nb          // WIDE_MAX_WARPS
+                : UNITS_OFF ? (float*)(hblk + H)
+                            : (float*)uls_s;
   const int* uls = staged ? uls_s : a.unit_last + (size_t)g * C;
   const float* Wut = staged ? Wu_s : Wu;
   const float* i0i = staged ? blk_s : blkt + B_I0_I * nb;
@@ -793,7 +827,8 @@ viterbi_forward_wide_kernel(const FwdArgs a) {
     hblk[j] = blk_idx[x];
     for (int r = 0; r < rh; ++r) wh[r * H + j] = Wd[r * P + x];
   }
-  for (int c = tid; c < C; c += T) idu[c] = c;
+  if (!UNITS_OFF)
+    for (int c = tid; c < C; c += T) idu[c] = c;
   if (staged) {
     for (int q = tid; q < nb; q += T) {
       blk_s[q] = blkt[B_I0_I * nb + q];
@@ -1140,13 +1175,13 @@ viterbi_forward_wide_kernel(const FwdArgs a) {
   }
 }
 
-// Launches the wide entry instantiated for (OT, PPT, UPL); with
-// `max_clusters` set it launches nothing and writes there how many of its
-// clusters the card holds at once (cudaOccupancyMaxActiveClusters).
-template <typename OT, int PPT, int UPL>
+// Launches the wide entry instantiated for (OT, PPT, UPL, UNITS_OFF);
+// with `max_clusters` set it launches nothing and writes there how many of
+// its clusters the card holds at once (cudaOccupancyMaxActiveClusters).
+template <typename OT, int PPT, int UPL, bool UNITS_OFF = false>
 int launch_wide(const FwdArgs& a, int G, int threads, size_t smem,
                 cudaStream_t s, int* max_clusters) {
-  auto kernel = viterbi_forward_wide_kernel<OT, PPT, UPL>;
+  auto kernel = viterbi_forward_wide_kernel<OT, PPT, UPL, UNITS_OFF>;
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem);
   if (a.cl_n > 8)
@@ -1172,7 +1207,10 @@ int launch_wide(const FwdArgs& a, int G, int threads, size_t smem,
 
 template <typename OT, int PPT>
 int launch_wide_upl(const FwdArgs& a, int G, int threads, size_t smem,
-                    cudaStream_t s, int* max_clusters) {
+                    cudaStream_t s, int* max_clusters, bool units_off) {
+  if (units_off)
+    return launch_wide<OT, PPT, 0, true>(a, G, threads, smem, s,
+                                         max_clusters);
   switch ((a.C + 31) / 32) {
     case 1: return launch_wide<OT, PPT, 1>(a, G, threads, smem, s,
                                            max_clusters);
@@ -1188,16 +1226,25 @@ int launch_wide_upl(const FwdArgs& a, int G, int threads, size_t smem,
 }
 
 int launch_wide_ppt(const FwdArgs& a, int G, int origin32, int threads,
-                    size_t smem, cudaStream_t s, int* max_clusters) {
+                    size_t smem, cudaStream_t s, int* max_clusters,
+                    bool units_off) {
   if (a.cl_w == threads)
     return origin32 ? launch_wide_upl<int32_t, 1>(a, G, threads, smem, s,
-                                                  max_clusters)
+                                                  max_clusters, units_off)
                     : launch_wide_upl<int16_t, 1>(a, G, threads, smem, s,
-                                                  max_clusters);
+                                                  max_clusters, units_off);
   return origin32 ? launch_wide_upl<int32_t, 2>(a, G, threads, smem, s,
-                                                max_clusters)
+                                                max_clusters, units_off)
                   : launch_wide_upl<int16_t, 2>(a, G, threads, smem, s,
-                                                max_clusters);
+                                                max_clusters, units_off);
+}
+
+// Whether a wide layout keeps its per-unit and per-block arrays in device
+// memory: where they do not fit in shared memory beside the slice's.
+bool wide_units_off(int slice, int P, int nb, int C, int n_rounds_p,
+                    int n_rounds_c) {
+  return wide_smem_bytes(slice, P, nb, C, n_rounds_p, n_rounds_c, false) >
+         WIDE_SMEM_MAX;
 }
 
 template <typename OT, int UPL, bool CARRY>
@@ -1244,8 +1291,10 @@ size_t advntr_forward_smem_bytes(int L, int P, int nb, int C,
 // shape the chosen entry does not take.  `wide` chooses the second entry,
 // which runs a cluster of `cluster` CTAs of `threads` threads a read, each
 // CTA a slice of `slice` positions (one or two a thread), with `wide_smem`
-// bytes of shared memory each (ops/_kernels.py::wide_layout decides them;
-// the first entry ignores them).  The entry state may be null (the reads
+// bytes of shared memory each and, where the per-unit arrays do not fit
+// there, `wide_scratch`: G * B * cluster * wide_unit_words(C, nb) 64-bit
+// words of device memory, null otherwise (ops/_kernels.py::wide_layout
+// decides them; the first entry ignores them).  The entry state may be null (the reads
 // start at column 0), the exit state too (it is not kept); with `planes`
 // 0 no origin plane is written and oMI, oXH may be null.
 int advntr_viterbi_forward(
@@ -1257,8 +1306,11 @@ int advntr_viterbi_forward(
     const void* entry_i, void* exit_f, void* exit_i, int G, int B, int L,
     int P, int nb, int C, int n_rounds_p, int n_rounds_c, int origin32,
     int mbit, int t0, int planes, int wide, int cluster, int slice,
-    int threads, int wide_smem, float ln05, void* stream) {
+    int threads, int wide_smem, void* wide_scratch, float ln05,
+    void* stream) {
   const int ppt = threads > 0 ? slice / threads : 0;
+  const bool units_off =
+      wide && wide_units_off(slice, P, nb, C, n_rounds_p, n_rounds_c);
   if (wide) {
     if (P < 1 || C < 1 || C + 1 > nb || cluster < 1 ||
         cluster > WIDE_MAX_CLUSTER || threads < 32 || threads > 1024 ||
@@ -1267,7 +1319,9 @@ int advntr_viterbi_forward(
         (size_t)cluster * slice < (size_t)P ||
         wide_rounds(P, n_rounds_p) > WIDE_MAX_ROUNDS ||
         (size_t)wide_smem != wide_smem_bytes(slice, P, nb, C, n_rounds_p,
-                                             n_rounds_c))
+                                             n_rounds_c, units_off) ||
+        (size_t)wide_smem > WIDE_SMEM_MAX ||
+        (wide_scratch != nullptr) != units_off)
       return (int)cudaErrorInvalidValue;
   } else if (P < 32 || P > 1024 || nb > P || C < 1 ||
              C > 32 * MAX_UPL || C + 1 > nb || n_rounds_p > MAX_ROUNDS) {
@@ -1295,23 +1349,27 @@ int advntr_viterbi_forward(
   a.entry_f = (const float*)entry_f; a.entry_i = (const int32_t*)entry_i;
   a.exit_f = (float*)exit_f; a.exit_i = (int32_t*)exit_i;
   a.cl_n = cluster; a.cl_w = slice; a.t0 = t0; a.planes = planes;
+  a.uscr = (float2*)wide_scratch;
   cudaStream_t s = (cudaStream_t)stream;
   if (wide)
-    return launch_wide_ppt(a, G, origin32, threads, wide_smem, s, nullptr);
+    return launch_wide_ppt(a, G, origin32, threads, wide_smem, s, nullptr,
+                           units_off);
   const size_t smem = advntr_forward_smem_bytes(L, P, nb, C, n_rounds_c);
   return origin32 ? launch_upl<int32_t>(a, G, smem, s)
                   : launch_upl<int16_t>(a, G, smem, s);
 }
 
 // How many clusters of the wide entry's layout (cluster, slice, threads,
-// wide_smem, as advntr_viterbi_forward takes them) for a model of C units
-// the card holds at once, into *out; returns the CUDA error code.
+// wide_smem, as advntr_viterbi_forward takes them; `units_off` where the
+// per-unit arrays are in device memory) for a model of C units the card
+// holds at once, into *out; returns the CUDA error code.
 int advntr_forward_wide_max_clusters(int C, int origin32, int cluster,
                                      int slice, int threads, int wide_smem,
-                                     int* out) {
+                                     int units_off, int* out) {
   FwdArgs a = {};
   a.B = 1; a.C = C; a.cl_n = cluster; a.cl_w = slice;
-  return launch_wide_ppt(a, 1, origin32, threads, wide_smem, nullptr, out);
+  return launch_wide_ppt(a, 1, origin32, threads, wide_smem, nullptr, out,
+                         units_off != 0);
 }
 
 const char* advntr_error_string(int code) {

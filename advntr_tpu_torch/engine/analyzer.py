@@ -40,8 +40,9 @@ from advntr_tpu_torch.io.sam import open_alignment
 from advntr_tpu_torch.utils.profiler import stage_summary, time_usage
 from advntr_tpu_torch.utils.quality import is_low_quality_read
 from advntr_tpu_torch.engine import device_analytics as da
-from advntr_tpu_torch.engine.finder import (GenotypeResult, LocusModelCache,
-                                            VNTRFinder)
+from advntr_tpu_torch.engine.finder import (GenotypeResult, HostStepError,
+                                            LocusModelCache, VNTRFinder,
+                                            host_step)
 from advntr_tpu_torch.engine.recruitment import (build_recruitment_filter,
                                                  filter_reads)
 
@@ -488,25 +489,27 @@ class GenomeAnalyzer:
 
     def _genotype_pacbio_locus(self, vid, unmapped_reads, accuracy_filter,
                                naive: bool = False, bam=None) -> None:
-        """Genotype one locus from long reads and print its row.  The walk
-        over the alignment is host work and an error in it yields the
-        locus's Error row, as in the reference; anchoring and scoring run
-        on the device, where a failure propagates."""
+        """Genotype one locus from long reads and print its row.  An error
+        in its host work (the walk over the alignment, the model build,
+        the haplotyper: ``HostStepError``) yields the locus's Error row,
+        as in the reference; anchoring and scoring run on the device,
+        where a failure propagates."""
         finder = self.vntr_finder[vid]
-        mapped_spanning = None
-        if bam is not None:
-            try:
-                mapped_spanning = \
-                    finder.get_spanning_reads_of_aligned_pacbio_reads(bam)
-            except Exception as error:
-                logging.error("Error genotyping VNTR %s: %s. Skipping.",
-                              vid, error)
-                self.print_genotype(vid, GenotypeResult(None, 0, 0, 0, 0),
-                                    encountered_error=True)
-                return
-        result = finder.find_repeat_count_pacbio(
-            unmapped_reads, accuracy_filter=accuracy_filter,
-            naive=naive, mapped_spanning=mapped_spanning)
+        try:
+            mapped_spanning = None
+            if bam is not None:
+                with host_step():
+                    mapped_spanning = \
+                        finder.get_spanning_reads_of_aligned_pacbio_reads(bam)
+            result = finder.find_repeat_count_pacbio(
+                unmapped_reads, accuracy_filter=accuracy_filter,
+                naive=naive, mapped_spanning=mapped_spanning)
+        except HostStepError as error:
+            logging.error("Error genotyping VNTR %s: %s. Skipping.", vid,
+                          error)
+            self.print_genotype(vid, GenotypeResult(None, 0, 0, 0, 0),
+                                encountered_error=True)
+            return
         self.print_genotype(vid, result)
 
     def find_repeat_counts_from_pacbio_alignment_file(

@@ -17,6 +17,7 @@ that the reference package wrote, without importing that package.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gzip
 import importlib
@@ -40,7 +41,7 @@ from advntr_tpu_torch.models.struct_compiler import (StructModel,
                                                      pad_structured)
 from advntr_tpu_torch.utils.profiler import time_usage
 from advntr_tpu_torch.engine import device_analytics as da
-from advntr_tpu_torch.ops.align import anchor_probe_batch, local_align
+from advntr_tpu_torch.ops.align import anchor_probes_batch, local_align
 from advntr_tpu_torch.ops.struct_model import TorchStructModel
 
 # batches longer than this many columns take the checkpointed (recompute)
@@ -78,6 +79,24 @@ class ScoredRead:
     is_mapped: bool
     query_name: str | None = None
     row: int = -1  # batch row of the winning orientation
+
+
+class HostStepError(Exception):
+    """A locus's host work failed (its model build, the haplotyper): the
+    analyzer prints that locus's Error row and goes on, as the reference
+    does.  A device error is not one of these and propagates."""
+
+
+@contextlib.contextmanager
+def host_step():
+    """Turn an error of the host work inside into a ``HostStepError``
+    (an unported feature's NotImplementedError stays as it is)."""
+    try:
+        yield
+    except NotImplementedError:
+        raise
+    except Exception as error:
+        raise HostStepError(str(error)) from error
 
 
 def _round_up(x: int, m: int) -> int:
@@ -213,9 +232,21 @@ class LocusModelCache:
 
     def get(self, ref_vntr, copies: int, flank_size: int,
             error_rate: float) -> LocusModel:
+        """The locus's model on the cache's device.  An error of the host
+        build (the compile, the bank, the padding) raises
+        ``HostStepError``; one of the upload to the device propagates as
+        it is."""
         key = self._key(ref_vntr, copies, flank_size, error_rate)
         if key in self._cache:
             return self._cache[key]
+        with host_step():
+            padded = self._pad(*self._payload(key, ref_vntr))
+        self._cache[key] = self._upload(*padded)
+        return self._cache[key]
+
+    def _payload(self, key, ref_vntr):
+        """The locus's (art, sm): from the pool, the bank or a build here
+        (a build is written to the bank)."""
         path = self._bank_path(key)
         payload = None
         built = False
@@ -225,17 +256,14 @@ class LocusModelCache:
         if payload is None and path is not None and os.path.exists(path):
             payload = load_reference_payload(path)
         if payload is None:
-            payload = build_locus_payload(ref_vntr, copies, flank_size,
-                                          error_rate)
-            built = True
+            payload, built = build_locus_payload(ref_vntr, *key[1:]), True
         if built and path is not None and not os.path.exists(path):
             os.makedirs(self.bank_dir, exist_ok=True)
             tmp = "%s.tmp.%d" % (path, os.getpid())
             with gzip.open(tmp, "wb", compresslevel=1) as fh:
                 pickle.dump(payload, fh)
             os.replace(tmp, path)
-        self._cache[key] = self._build_from_payload(*payload)
-        return self._cache[key]
+        return payload
 
     def evict(self, ref_vntr, copies: int, flank_size: int,
               error_rate: float) -> None:
@@ -249,7 +277,8 @@ class LocusModelCache:
         """Axes past 1024 pad to 512-multiples (finder.py:297-304)."""
         return max(bucket, 512) if size > 1024 else bucket
 
-    def _build_from_payload(self, art, sm) -> LocusModel:
+    def _pad(self, art, sm):
+        """(art, sm padded to the buckets, the padded state count)."""
         n_pad = _round_up(art.n_states,
                           self._coarse_bucket(art.n_states,
                                               self.state_bucket))
@@ -257,10 +286,15 @@ class LocusModelCache:
                           self._coarse_bucket(sm.P + 1, self.pos_bucket))
         C_pad = _round_up(sm.C, self.unit_bucket if sm.C <= 24
                           else max(self.unit_bucket, 32))
-        sm = pad_structured(sm, art, P_pad, C_pad)
+        return art, pad_structured(sm, art, P_pad, C_pad), n_pad
+
+    def _upload(self, art, sm, n_pad) -> LocusModel:
         return LocusModel(
             model=TorchStructModel.from_payload(art, sm, self.device),
             n_pad=n_pad)
+
+    def _build_from_payload(self, art, sm) -> LocusModel:
+        return self._upload(*self._pad(art, sm))
 
 
 def flank_pattern_homology(pattern: str, left_flank: str,
@@ -638,9 +672,10 @@ class VNTRFinder:
 
     def get_spanning_reads_of_unaligned_pacbio_reads(self, unmapped_reads):
         """Batched flank anchoring: both orientations of every long read are
-        aligned against both 100bp flank probes in four passes on the
-        cache's device (finder.py:1259-1295; the original adVNTR forks one
-        process per read and runs Bio.pairwise2, vntr_finder.py:423-439)."""
+        aligned against both 100bp flank probes in four passes of one
+        launch on the cache's device (finder.py:1259-1295; the original
+        adVNTR forks one process per read and runs Bio.pairwise2,
+        vntr_finder.py:423-439)."""
         flank_size = 100
         left = self.reference_vntr.left_flanking_region[-flank_size:]
         right = self.reference_vntr.right_flanking_region[:flank_size]
@@ -659,8 +694,8 @@ class VNTRFinder:
         length_dist: list = []
         if not codes:
             return spanning, length_dist
-        res_l = anchor_probe_batch(codes, dna.encode(left), self.device)
-        res_r = anchor_probe_batch(codes, dna.encode(right), self.device)
+        res_l, res_r = anchor_probes_batch(
+            codes, [dna.encode(left), dna.encode(right)], self.device)
         for name, s, (score_l, start_l, _), (score_r, start_r, _) in zip(
                 names, seqs, res_l, res_r):
             if score_l < min_l or score_r < min_r:
@@ -766,8 +801,9 @@ class VNTRFinder:
                          2 * len(self.reference_vntr.get_repeat_segments()))
         model = self.get_model(read_length=0, copies=max_copies,
                                flank_size=100)
-        haplotyper = PacBioHaplotyper([seq for _, seq in spanning_reads])
-        haplotypes = haplotyper.get_error_corrected_haplotypes()
+        with host_step():
+            haplotyper = PacBioHaplotyper([seq for _, seq in spanning_reads])
+            haplotypes = haplotyper.get_error_corrected_haplotypes()
         if not haplotypes:
             return None
         scored, _ = self.score_reads(
@@ -777,17 +813,19 @@ class VNTRFinder:
 
     def find_ru_counts_with_naive_approach(self, spanning_reads):
         """RU count from the flank-to-flank distance of the error-corrected
-        consensus (reference semantics: vntr_finder.py:611-624)."""
-        haplotyper = PacBioHaplotyper([seq for _, seq in spanning_reads])
-        haplotypes = haplotyper.get_error_corrected_haplotypes(1)
-        if len(haplotypes) == 0:
-            return None
-        flanking_lengths: list = []
-        dummy: list = []
-        self._check_flanks_align(haplotypes[0].upper(), "consensus",
-                                 dummy, flanking_lengths)
-        self._check_flanks_align(dna.revcomp(haplotypes[0]).upper(),
-                                 "consensus", dummy, flanking_lengths)
+        consensus (reference semantics: vntr_finder.py:611-624); host work
+        throughout."""
+        with host_step():
+            haplotyper = PacBioHaplotyper([seq for _, seq in spanning_reads])
+            haplotypes = haplotyper.get_error_corrected_haplotypes(1)
+            if len(haplotypes) == 0:
+                return None
+            flanking_lengths: list = []
+            dummy: list = []
+            self._check_flanks_align(haplotypes[0].upper(), "consensus",
+                                     dummy, flanking_lengths)
+            self._check_flanks_align(dna.revcomp(haplotypes[0]).upper(),
+                                     "consensus", dummy, flanking_lengths)
         if flanking_lengths:
             ru = round(flanking_lengths[0] / len(self.reference_vntr.pattern))
             return (ru, ru)

@@ -66,6 +66,8 @@ HALO_ROUNDS = 9
 SMEM_MAX = 232448
 MAX_STRUCT = 12288          # B2 stages state tables of up to 2P + nb entries
 MAX_PROBE = 128             # local_align holds the probe four to a lane
+MAX_PASSES = 8              # (probe, read batch) pairs a local_align launch
+ALIGN_WARPS_PER_SM = 16     # local_align splits reads into chunks for these
 
 LAUNCHES = {"forward": 0, "forward_wide": 0, "backward": 0,
             "local_align": 0}
@@ -130,9 +132,10 @@ def build() -> dict:
         BUILD_LOG = compile_sources(missing)
     libs = {name: ctypes.CDLL(str(out)) for name, out in paths.items()}
     fwd = libs["viterbi_forward.cu"]
-    fwd.advntr_viterbi_forward.argtypes = [_VP] * 22 + [_I] * 17 + [_F, _VP]
+    fwd.advntr_viterbi_forward.argtypes = ([_VP] * 22 + [_I] * 17
+                                           + [_VP, _F, _VP])
     fwd.advntr_viterbi_forward.restype = _I
-    fwd.advntr_forward_wide_max_clusters.argtypes = [_I] * 6 + [_VP]
+    fwd.advntr_forward_wide_max_clusters.argtypes = [_I] * 7 + [_VP]
     fwd.advntr_forward_wide_max_clusters.restype = _I
     fwd.advntr_error_string.argtypes = [_I]
     fwd.advntr_error_string.restype = ctypes.c_char_p
@@ -140,7 +143,7 @@ def build() -> dict:
     fn.argtypes = [_VP] * 10 + [_I] * 10 + [_VP]
     fn.restype = _I
     fn = libs["local_align.cu"].advntr_local_align
-    fn.argtypes = [_VP] * 5 + [_I] * 3 + [_VP]
+    fn.argtypes = [_VP] * 8 + [_I] * 7 + [_VP]
     fn.restype = _I
     BUILD_SECONDS = time.perf_counter() - t0
     _libs = libs
@@ -195,12 +198,15 @@ class WideLayout:
     """How B1's wide entry spreads a read: a cluster of ``cluster`` CTAs of
     ``threads`` threads, each CTA a slice of ``slice`` = ``ppt`` x
     ``threads`` consecutive positions (the last one may hold fewer), with
-    ``smem`` bytes of shared memory."""
+    ``smem`` bytes of shared memory and ``unit_words`` 64-bit words of
+    device memory for the per-unit and per-block arrays (0: they are in
+    shared memory)."""
     cluster: int
     threads: int
     slice: int
     ppt: int
     smem: int
+    unit_words: int = 0
 
 
 def wide_rounds(P: int, n_rounds_p: int) -> int:
@@ -221,10 +227,12 @@ def wide_layout(P: int, nb: int, C: int, n_rounds_p: int, n_rounds_c: int,
     checks): 72 bytes a position of the slice, 16 a unit, and 24 more a
     unit once the unit chain's buffers outgrow the rounds' (C past about
     2/3 of the slice and halo); up to ``MAX_UNITS`` units the unit tables
-    are staged too.  So with motifs of 6 bp and more (the
-    reference's VNTR database keeps no shorter ones) every model of up to
-    16 x 1,024 positions fits.  Raises ValueError for a shape the entry
-    does not take."""
+    are staged too.  Where that passes ``SMEM_MAX`` (past 16 x 1,024
+    positions with motifs under about 7.5 bp), the per-unit and per-block
+    arrays move to device memory (``unit_words`` a CTA, as
+    csrc/viterbi_forward.cu::wide_unit_words counts them) and the shared
+    bytes no longer depend on C: every model of up to 32,768 positions
+    fits.  Raises ValueError for a shape the entry does not take."""
     _require(P >= 1 and C >= 1 and C + 2 <= nb,
              f"B1's wide entry takes P >= 1, C >= 1 and C + 2 <= nb; got "
              f"P={P}, C={C}, nb={nb}")
@@ -241,9 +249,16 @@ def wide_layout(P: int, nb: int, C: int, n_rounds_p: int, n_rounds_c: int,
     halo_rounds = min(rounds, HALO_ROUNDS)
     halo = (1 << halo_rounds) - 1
     staged = (1 + n_rounds_c) * C + 7 * nb if C <= MAX_UNITS else 0
-    smem = (8 * (7 * width + 2 + max(2 * (halo + width), 3 * C + 1))
-            + 4 * (extra * width + (halo_rounds + 4) * halo + 3 * nb + C
-                   + staged + 3 * 32 + 2 * WIDE_MAX_CLUSTER))
+    fixed = 8 * (7 * width + 2) + 4 * (extra * width
+                                       + (halo_rounds + 4) * halo
+                                       + 3 * 32 + 2 * WIDE_MAX_CLUSTER)
+    rounds_buf = 8 * 2 * (halo + width)
+    smem = (fixed + max(rounds_buf, 8 * (3 * C + 1))
+            + 4 * (3 * nb + C + staged))
+    unit_words = 0
+    if smem > SMEM_MAX:
+        smem = fixed + rounds_buf
+        unit_words = 3 * C + 1 + (3 * nb + 1) // 2
     _require(1 <= ppt <= WIDE_MAX_PPT and threads <= MAX_THREADS
              and rounds <= WIDE_MAX_ROUNDS and smem <= SMEM_MAX,
              f"B1's wide entry takes up to {WIDE_MAX_PPT} positions a "
@@ -251,7 +266,7 @@ def wide_layout(P: int, nb: int, C: int, n_rounds_p: int, n_rounds_c: int,
              f"threads, {WIDE_MAX_ROUNDS} rounds and {SMEM_MAX} bytes of "
              f"shared memory a CTA; P={P}, C={C}, nb={nb} need {ppt} a "
              f"thread in CTAs of {threads}, {rounds} rounds and {smem} bytes")
-    return WideLayout(n, threads, width, ppt, smem)
+    return WideLayout(n, threads, width, ppt, smem, unit_words)
 
 
 def wide_max_clusters(lay: WideLayout, C: int, origin32: bool) -> int:
@@ -260,7 +275,7 @@ def wide_max_clusters(lay: WideLayout, C: int, origin32: bool) -> int:
     out = ctypes.c_int(0)
     code = build()["viterbi_forward.cu"].advntr_forward_wide_max_clusters(
         C, int(origin32), lay.cluster, lay.slice, lay.threads, lay.smem,
-        ctypes.byref(out))
+        int(lay.unit_words > 0), ctypes.byref(out))
     _check(code, "cudaOccupancyMaxActiveClusters on viterbi_forward_wide")
     return out.value
 
@@ -319,6 +334,12 @@ def _launch_forward(s, seqs, lengths, origin32, state, t0, planes,
     if B == 0 or L == 0:
         _require(not keep_state, "an empty batch has no state to keep")
         return best, bstate, oMI, oXH, exit_
+    # the per-unit arrays of a (locus, read, CTA), where shared memory
+    # does not hold them: written before they are read, so not cleared
+    units = None
+    if lay.unit_words:
+        units = torch.empty(G * B * lay.cluster * lay.unit_words,
+                            dtype=torch.int64, device=dev)
     opt = lambda x: None if x is None else _ptr(x)
     code = lib.advntr_viterbi_forward(
         _ptr(seqs8), _ptr(lengths32), _ptr(s.pos), _ptr(s.blk), _ptr(s.eM),
@@ -329,7 +350,8 @@ def _launch_forward(s, seqs, lengths, origin32, state, t0, planes,
         opt(exit_ and exit_[0]), opt(exit_ and exit_[1]),
         G, B, L, P, nb, C, s.Wd.shape[1], s.Wu.shape[1],
         int(odt == torch.int32), mbit, int(t0), int(planes), int(wide),
-        lay.cluster, lay.slice, lay.threads, lay.smem, LN05, _stream(dev))
+        lay.cluster, lay.slice, lay.threads, lay.smem, opt(units), LN05,
+        _stream(dev))
     _check(code, "viterbi_forward")
     LAUNCHES["forward_wide" if wide else "forward"] += 1
     return best, bstate, oMI, oXH, exit_
@@ -423,32 +445,59 @@ def backward_segment(s, lengths, bstate, oMI, oXH, t0: int, entry):
     return path, exit_
 
 
-def local_align(reads, lengths, probe):
-    """Launch the batched local alignment (csrc/local_align.cu): reads
-    (B, L) int8 and lengths (B,) on a CUDA device, probe (m,) int8 with
-    m <= ``MAX_PROBE``.  Returns (score (B,), end (B,)) int32."""
-    _require(reads.dim() == 2 and reads.dtype == torch.int8,
-             f"reads must be (B, L) int8; got {tuple(reads.shape)} "
+def align_chunks(passes: int, B: int, L: int, m: int, sms: int) -> int:
+    """How many chunks ``local_align_passes`` splits each read into, on a
+    card of ``sms`` SMs: enough warps for ``ALIGN_WARPS_PER_SM`` on each,
+    but no chunk shorter than the 2m rows it computes before its own
+    (csrc/local_align.cu says why those make it exact)."""
+    want = -(-ALIGN_WARPS_PER_SM * sms // (passes * B))
+    return max(1, min(want, L // (2 * m)))
+
+
+def local_align_passes(reads, lengths, probes, probe_lengths, read_sets):
+    """Launch the batched local alignment (csrc/local_align.cu) once for Q
+    passes: reads (R, B, L) int8, lengths (B,) and probes (Q, stride) int8
+    on one CUDA device; pass i aligns the first ``probe_lengths[i]`` bases
+    of ``probes[i]`` against ``reads[read_sets[i]]`` (both are Q host
+    ints).  Returns (score (Q, B), end (Q, B)) int32."""
+    _require(reads.dim() == 3 and reads.dtype == torch.int8,
+             f"reads must be (R, B, L) int8; got {tuple(reads.shape)} "
              f"{reads.dtype}")
-    B, L = reads.shape
+    R, B, L = reads.shape
     dev = reads.device
+    Q = len(probe_lengths)
     _require(lengths.shape == (B,) and lengths.device == dev
-             and probe.dim() == 1 and probe.device == dev
-             and probe.dtype == torch.int8,
-             "lengths must be (B,) and probe (m,) int8 on the reads' device")
-    m = probe.shape[0]
-    _require(1 <= m <= MAX_PROBE,
-             f"local_align takes probes of 1 to {MAX_PROBE} bases; got {m}")
-    lib = build()["local_align.cu"]
-    reads, probe = reads.contiguous(), probe.contiguous()
-    lengths32 = lengths.to(torch.int32).contiguous()
-    score = torch.zeros(B, dtype=torch.int32, device=dev)
-    end = torch.zeros(B, dtype=torch.int32, device=dev)
+             and probes.dim() == 2 and probes.shape[0] == Q
+             and probes.device == dev and probes.dtype == torch.int8
+             and len(read_sets) == Q,
+             "lengths must be (B,) and probes (Q, stride) int8 on the "
+             "reads' device, with a length and a read batch a probe")
+    _require(1 <= Q <= MAX_PASSES,
+             f"local_align takes 1 to {MAX_PASSES} passes a launch; got {Q}")
+    _require(all(1 <= m <= min(MAX_PROBE, probes.shape[1])
+                 for m in probe_lengths),
+             f"local_align takes probes of 1 to {MAX_PROBE} bases; got "
+             f"{list(probe_lengths)}")
+    _require(all(0 <= r < R for r in read_sets),
+             f"read batches {list(read_sets)} of {R}")
     if B == 0 or L == 0:
-        return score, end
-    code = lib.advntr_local_align(_ptr(reads), _ptr(lengths32), _ptr(probe),
-                                  _ptr(score), _ptr(end), B, L, m,
-                                  _stream(dev))
+        return (torch.zeros(Q, B, dtype=torch.int32, device=dev),
+                torch.zeros(Q, B, dtype=torch.int32, device=dev))
+    lib = build()["local_align.cu"]
+    reads, probes = reads.contiguous(), probes.contiguous()
+    lengths32 = lengths.to(torch.int32).contiguous()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    chunks = align_chunks(Q, B, L, max(probe_lengths), sms)
+    rows = -(-L // chunks)
+    # every (pass, read) is written by its last chunk to finish
+    score = torch.empty(Q, B, dtype=torch.int32, device=dev)
+    end = torch.empty(Q, B, dtype=torch.int32, device=dev)
+    work = torch.zeros(2, Q, B, dtype=torch.int64, device=dev)
+    ints = lambda xs: (ctypes.c_int * Q)(*xs)
+    code = lib.advntr_local_align(
+        _ptr(reads), _ptr(lengths32), _ptr(probes), ints(probe_lengths),
+        ints(read_sets), _ptr(score), _ptr(end), _ptr(work), R, B, L, Q,
+        probes.shape[1], chunks, rows, _stream(dev))
     _check(code, "local_align")
     LAUNCHES["local_align"] += 1
     return score, end

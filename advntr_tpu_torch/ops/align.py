@@ -12,8 +12,10 @@ Counterpart of advntr_tpu/ops/align.py: ``local_align`` and
 ``global_align_score`` are the reference's, copied; ``local_align_batch``
 is its scan over read columns as a hand-written CUDA kernel
 (csrc/local_align.cu) for CUDA tensors and as plain PyTorch
-(``local_align_batch_reference``) for CPU ones.  All of it is int32
-arithmetic, so the three agree exactly.
+(``local_align_batch_reference``) for CPU ones; ``local_align_passes``
+runs several probes in one launch, as ``anchor_probes_batch`` does for
+a locus's two flanks in both directions.  All of it is int32 arithmetic,
+so they agree exactly.
 """
 
 from __future__ import annotations
@@ -110,6 +112,71 @@ def local_align_batch_reference(reads, lengths, probe):
     return best, best_end
 
 
+def local_align_wavefront_reference(reads, lengths, probe, chunks: int):
+    """The scheme of csrc/local_align.cu in plain PyTorch, step by step, for
+    the tests: each read in ``chunks`` chunks of ceil(L / chunks) rows, a
+    warp each, each chunk started 2m rows early from H = 0; the warp's 32
+    lanes hold the probe four positions each, lane k computing row s - k
+    at step s from what lane k - 1 handed on at step s - 1; each lane keeps
+    its maximum and the first row that reached it, the chunk takes the
+    lanes' maximum and the first row among the lanes that hold it, and the
+    chunks combine by the larger best, then the earlier end.  Equal to
+    ``local_align_batch_reference`` (the tests hold both to the JAX scan)."""
+    B, L = reads.shape
+    m = probe.shape[0]
+    i32, i64 = torch.int32, torch.int64
+    if B == 0 or L == 0:
+        return torch.zeros(B, dtype=i32), torch.zeros(B, dtype=i32)
+    reads = reads.to(i64)
+    rows = -(-L // chunks)
+    nl = -(-m // 4)
+    n = lengths.to(i64).clamp(0, L)[:, None]                    # (B, 1)
+    c0 = torch.arange(chunks, dtype=i64)[None, :] * rows        # (1, NC)
+    e = torch.minimum(c0 + rows, n)                             # (B, NC)
+    r0 = (c0 - 2 * m).clamp(min=0).expand(B, chunks)
+    lane = torch.arange(32, dtype=i64)
+    pr = torch.full((128,), -128, dtype=i64)
+    pr[:m] = probe.to(i64)
+    pr = pr.view(32, 4)
+    shape = (B, chunks, 32)
+    T = torch.zeros(*shape, 4, dtype=i64)      # H[t-1, 4k+u+1]
+    dgl = torch.zeros(shape, dtype=i64)        # H[t-1, 4k]
+    out_h = torch.zeros(shape, dtype=i64)      # what a lane hands on
+    out_b = torch.zeros(shape, dtype=i64)
+    best = torch.zeros(shape, dtype=i64)
+    first = torch.zeros(shape, dtype=i64)
+    zero = torch.zeros(B, chunks, 1, dtype=i64)
+    steps = int((e - r0).clamp(min=0).max()) + nl - 1
+    for s in range(steps):
+        left = torch.cat([zero, out_h[..., :-1]], dim=2)
+        base0 = reads.gather(1, (r0 + s).clamp(max=L - 1))[..., None]
+        base = torch.cat([base0, out_b[..., :-1]], dim=2)
+        t = r0[..., None] + s - lane
+        act = (s >= lane) & (t < e[..., None]) & (lane < nl)
+        hl, dg, cells = left, dgl, []
+        for u in range(4):
+            sub = torch.where(pr[:, u] == base, 1, -1)
+            cnd = torch.maximum(dg + sub, T[..., u] - 1).clamp(min=0)
+            dg = T[..., u]
+            hl = torch.maximum(hl - 1, cnd)
+            cells.append(hl)
+        cells = torch.stack(cells, dim=-1)
+        mx = cells.max(dim=-1).values
+        T = torch.where(act[..., None], cells, T)
+        dgl = torch.where(act, left, dgl)
+        out_h = torch.where(act, hl, out_h)
+        out_b = torch.where(act, base, out_b)
+        better = act & (t >= c0[..., None]) & (mx > best)
+        best = torch.where(better, mx, best)
+        first = torch.where(better, t, first)
+    cb = best.max(dim=2).values                                 # (B, NC)
+    cf = torch.where(best == cb[..., None], first, 1 << 40).min(dim=2).values
+    ce = torch.where(cb > 0, cf + 1, 0)
+    key = (cb << 32) | (0xFFFFFFFF - ce)
+    k = key.max(dim=1).values
+    return (k >> 32).to(i32), (0xFFFFFFFF - (k & 0xFFFFFFFF)).to(i32)
+
+
 def local_align_batch(reads, lengths, probe):
     """Batched Smith-Waterman of one probe against many reads.
 
@@ -123,33 +190,57 @@ def local_align_batch(reads, lengths, probe):
     CUDA tensors go to the kernel (one launch), CPU tensors to the plain
     version."""
     if reads.is_cuda:
-        return _kernels.local_align(reads.to(torch.int8), lengths,
-                                    probe.to(torch.int8))
+        score, end = _kernels.local_align_passes(
+            reads.to(torch.int8)[None], lengths, probe.to(torch.int8)[None],
+            [probe.shape[0]], [0])
+        return score[0], end[0]
     if reads.device.type == "cpu":
         return local_align_batch_reference(reads, lengths, probe)
     raise ValueError(f"no local_align_batch for device {reads.device}")
 
 
-def anchor_probe_batch(read_codes_list, probe_codes, device="cuda"):
-    """Host wrapper: for each encoded read, the best (score, start, end) of
-    the probe's local alignment: two batched passes (forward + reversed)
-    on ``device``."""
+def local_align_passes(reads, lengths, probes, probe_lengths, read_sets):
+    """Several ``local_align_batch`` passes at once: reads (R, B, L),
+    lengths (B,), probes (Q, stride); pass i aligns the first
+    ``probe_lengths[i]`` bases of ``probes[i]`` against
+    ``reads[read_sets[i]]``.  Returns (score (Q, B), end (Q, B)) int32.
+    CUDA tensors go to the kernel in one launch, CPU tensors to the plain
+    version pass by pass."""
+    if reads.is_cuda:
+        return _kernels.local_align_passes(reads, lengths, probes,
+                                           probe_lengths, read_sets)
+    if reads.device.type == "cpu":
+        outs = [local_align_batch_reference(reads[r], lengths, probes[i, :m])
+                for i, (m, r) in enumerate(zip(probe_lengths, read_sets))]
+        return (torch.stack([s for s, _ in outs]),
+                torch.stack([e for _, e in outs]))
+    raise ValueError(f"no local_align_passes for device {reads.device}")
+
+
+def anchor_probes_batch(read_codes_list, probes, device="cuda"):
+    """Host wrapper: for each probe, for each encoded read, the best
+    (score, start, end) of the probe's local alignment: every probe
+    forward against the reads and reversed against the reversed reads,
+    all in one ``local_align_passes`` call on ``device``."""
     if not read_codes_list:
-        return []
+        return [[] for _ in probes]
     batch, lengths = dna.pad_batch(read_codes_list, multiple=32)
     rev_rows = [r[::-1].copy() for r in read_codes_list]
     rev_batch, _ = dna.pad_batch(rev_rows, pad_to=batch.shape[1], multiple=1)
-    probe = np.asarray(probe_codes, dtype=np.int8)
-    rev_probe = probe[::-1].copy()
+    probes = [np.asarray(p, dtype=np.int8) for p in probes]
+    Q = len(probes)
+    table = np.zeros((2 * Q, max(len(p) for p in probes)), dtype=np.int8)
+    for i, p in enumerate(probes):
+        table[i, :len(p)] = p
+        table[Q + i, :len(p)] = p[::-1]
     on = lambda x: torch.as_tensor(x, device=device)
-    score, end = local_align_batch(on(batch), on(lengths), on(probe))
-    score_r, end_r = local_align_batch(on(rev_batch), on(lengths),
-                                       on(rev_probe))
-    score = score.cpu().numpy()
-    end = end.cpu().numpy()
-    start = lengths - end_r.cpu().numpy()
-    return [(int(score[i]), int(start[i]), int(end[i]))
-            for i in range(len(read_codes_list))]
+    score, end = local_align_passes(
+        on(np.stack([batch, rev_batch])), on(lengths), on(table),
+        [len(p) for p in probes] * 2, [0] * Q + [1] * Q)
+    score, end = score.cpu().numpy(), end.cpu().numpy()
+    start = lengths[None, :] - end[Q:]
+    return [[(int(score[i, b]), int(start[i, b]), int(end[i, b]))
+             for b in range(len(read_codes_list))] for i in range(Q)]
 
 
 def global_align_score(a: str, b: str) -> int:

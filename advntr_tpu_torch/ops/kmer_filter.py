@@ -124,11 +124,19 @@ def count_topk(codes_table, locus_ids, seqs, lengths, k: int, n_loci: int,
 def recruit_chunk(n_loci: int) -> int:
     """Reads per device chunk: the (B, n_loci) count plane stays under
     ~256 MB, and no chunk exceeds ADVNTR_TPU_RECRUIT_CHUNK reads
-    (kmer_filter.py:159-177)."""
+    (kmer_filter.py:159-177).  Raises ValueError where that variable is
+    not an integer of at least 1, which would recruit nothing."""
     b_cap = max(32, (64 << 20) // max(1, n_loci))
     b_cap = 1 << (b_cap.bit_length() - 1)
-    return min(b_cap, int(os.environ.get("ADVNTR_TPU_RECRUIT_CHUNK",
-                                         str(DEFAULT_CHUNK))))
+    raw = os.environ.get("ADVNTR_TPU_RECRUIT_CHUNK", str(DEFAULT_CHUNK))
+    try:
+        limit = int(raw)
+    except ValueError:
+        limit = 0
+    if limit < 1:
+        raise ValueError("ADVNTR_TPU_RECRUIT_CHUNK must be an integer of at "
+                         f"least 1 (reads a recruitment chunk); got {raw!r}")
+    return min(b_cap, limit)
 
 
 class RecruitmentFilter:

@@ -258,3 +258,62 @@ def rescore(art, path, codes) -> float:
         s += art.log_T[path[t - 1], path[t]] + art.log_E[path[t], codes[t]]
     return s + float(art.log_end[path[-1]])
 
+
+
+def random_wide_model(P: int, C: int, seed: int, device, flank: int = 1100):
+    """A TorchStructModel of P positions and C units with random float32
+    tables and no host compile (the host's dense model of 20,000 positions
+    would take 13 GB): a left flank of ``flank`` positions (block 0, the
+    delete chain's longest run, so 2^r > flank rounds), C units of about
+    equal length (blocks 1..C) and a suffix block of 100 positions
+    (C + 1), nb = C + 2, as the engine's models are laid out.  Log
+    weights are drawn from (-6, -0.05), a tenth of the transitions into
+    and inside a position set to NEG, and every model table the forward
+    kernel reads follows from those as ``TorchStructModel.from_payload``
+    derives it; the walk's state tables are left zero.  For holding B1's
+    wide entry to its twin on shapes no real model of the tests reaches."""
+    import numpy as np
+    import torch
+
+    from advntr_tpu_torch.ops.struct_model import (BLK_ROWS, NEG, POS,
+                                                   POS_ROWS,
+                                                   TorchStructModel,
+                                                   delete_windows,
+                                                   unit_windows)
+    rng = np.random.default_rng(seed)
+    nb = C + 2
+    suffix = 100
+    assert flank + C + suffix <= P, "too many units for the positions"
+    blk_idx = np.full(P, C + 1, dtype=np.int64)
+    blk_idx[:flank] = 0
+    bounds = np.linspace(flank, P - suffix, C + 1).round().astype(np.int64)
+    for c in range(C):
+        blk_idx[bounds[c]:bounds[c + 1]] = c + 1
+    unit_last = bounds[1:] - 1
+    draw = lambda *shape: rng.uniform(-6, -0.05, shape)
+    pos = draw(len(POS_ROWS), P)
+    pos[:POS["xm"]][rng.random((POS["xm"], P)) < 0.1] = NEG
+    last = np.zeros(P, dtype=bool)
+    last[unit_last] = True
+    last[P - 1] = True
+    for name in ("xm", "xi", "xd"):
+        pos[POS[name], ~last] = NEG
+    pos[POS["le_M"]][rng.random(P) < 0.5] = NEG
+    pos[POS["le_I"]][rng.random(P) < 0.5] = NEG
+    dd = draw(P)
+    dd[np.flatnonzero(np.diff(blk_idx, prepend=-1))] = NEG
+    r_unit = float(np.float32(rng.uniform(-3, -0.5)))
+    f32 = lambda x: torch.as_tensor(np.asarray(x, dtype=np.float32),
+                                    device=device)
+    i32 = lambda x: torch.as_tensor(np.asarray(x, dtype=np.int32),
+                                    device=device)
+    zeros = np.zeros(2 * P + nb, dtype=np.int64)
+    return TorchStructModel(
+        P=P, nb=nb, C=C, suffix_last=P - 1, r_unit=r_unit, pos=f32(pos),
+        blk=f32(draw(len(BLK_ROWS), nb)), eM=f32(draw(P, 4)),
+        eI=f32(draw(P, 4)), eI0=f32(draw(nb, 4)), Wd=f32(delete_windows(dd)),
+        Wu=f32(unit_windows(r_unit, C)), blk_idx=i32(blk_idx),
+        exp_base=i32(rng.integers(0, 4, P)), unit_last=i32(unit_last),
+        region=i32(zeros), unit=i32(zeros),
+        struct_to_art=torch.as_tensor(zeros, device=device),
+        art_meta=tuple(i32(np.zeros(1)) for _ in range(4)))

@@ -57,14 +57,19 @@ Phases (any failed check exits non-zero):
    that segment, from the same entry state, held to the plain twins at
    full width: B1's planes and exit state over all 512 columns, B2's path
    slice and exit state, bit-identical, the twins' times as measured;
-   local_align against its plain version on 3,000-base and 12,288-base
-   reads in both directions, exact, timed;
+   B1's wide entry on a random model of P 20,480 and C 3,414 (6 bp
+   motifs past 16,384 positions: the unit arrays in device memory), one
+   16-column launch bit-identical to the twin; local_align against its
+   plain version on 3,000-base and 12,288-base reads in both directions,
+   one pass a launch and a locus's four passes in one launch, exact,
+   timed beside its bound and its chain floor;
 7. long reads end to end: ``genotype -p -f`` on a four-locus synthetic
    PacBio panel (noisy 3,000-base reads, both orientations, one long-tract
    locus whose windows pass 2,048 columns): every locus at its simulated
    genotype, the long-tract locus through the checkpointed path and the
-   wide entry, ``--device cpu`` (the twins, segment by segment) giving the
-   same text on all four loci, the long-tract one included.
+   wide entry, one local_align launch a locus, ``--device cpu`` (the
+   twins, segment by segment) giving the same text on all four loci, the
+   long-tract one included.
 
     python3 chip_smoke.py --long-tail
 
@@ -95,6 +100,13 @@ timed in turns with it at the cell (the whole-read launch, and the wide
 entry forced onto the cell's model), at one segment of the long-read
 batch (the wide entry with and without planes) and on the whole batch;
 under --long-tail at the tail's segment too.
+
+    python3 chip_smoke.py --align-source FILE[,FILE...]
+
+builds each FILE (a source of local_align with the one-probe C entry
+point it had before its redesign, such as git show 88b8a7f:
+advntr_tpu_torch/csrc/local_align.cu), holds it to the plain version and
+times it in turns with the committed kernel at both shapes.
 
     python3 chip_smoke.py --forward-variant FILE[,FILE...]
 
@@ -844,6 +856,57 @@ def phase_wide_vs_twins(dev, kernels):
     return err
 
 
+# a window past 16,384 positions with 6 bp motifs: B1's wide entry keeps
+# the per-unit arrays in device memory there
+UNITS_OFF_P, UNITS_OFF_C, UNITS_OFF_B, UNITS_OFF_K = 20480, 3414, 2, 16
+
+
+def phase_wide_units_off(dev, kernels):
+    """B1's wide entry on a model of P 20,480 and C 3,414 (random tables
+    from a seed, no host compile), whose per-unit arrays do not fit in
+    shared memory: one 16-column launch on B 2 against the twin, planes,
+    exit state, best and bstate bit-identical; timed.  Returns a dict for
+    the kernels line."""
+    from advntr_tpu_torch.ops import viterbi_fused as vf
+    from advntr_tpu_torch.synthetic import random_wide_model
+    P, C, B, K = UNITS_OFF_P, UNITS_OFF_C, UNITS_OFF_B, UNITS_OFF_K
+    m = random_wide_model(P, C, seed=11, device=dev)
+    stack = m.as_stack()
+    lay, _, occupancy = wide_occupancy(kernels, m)
+    check(lay.unit_words > 0,
+          f"P={P}, C={C} kept its unit arrays in shared memory")
+    rng = np.random.default_rng(11)
+    seqs = torch.as_tensor(rng.integers(0, 4, (1, B, K)), dtype=torch.int8,
+                           device=dev)
+    lens = torch.tensor([[K, K // 2 + 1]], dtype=torch.int32, device=dev)
+    run = lambda: kernels.forward_segment(stack, seqs, lens)
+    best, bstate, oMI, oXH, state = run()
+    t0 = time.perf_counter()
+    twin, tMI, tXH = vf.fused_forward_segment_reference(m, seqs[0], lens[0])
+    tbest, tbstate = vf.forward_state_best(m, twin)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    check(torch.equal(oMI[0], tMI) and torch.equal(oXH[0], tXH),
+          f"B1's wide entry at P={P}, C={C}: planes differ from the twin")
+    check(torch.equal(state[0][0], twin[0])
+          and torch.equal(state[1][0], twin[1]),
+          f"B1's wide entry at P={P}, C={C}: exit state differs")
+    check(torch.equal(best[0], tbest) and torch.equal(bstate[0], tbstate),
+          f"B1's wide entry at P={P}, C={C}: best or bstate differs")
+    ms = time_ms(run, iters=5, warmup=1)
+    log(f"wide entry, unit arrays in device memory: P={P}, C={C}, B={B}, "
+        f"{K} columns from a random model: planes, exit state, best and "
+        f"bstate bit-identical to the twin ({plain_ms:.0f} ms); "
+        f"{ms:.3f} ms a launch ({ms / K * 1e3:.2f} us a column); "
+        f"{lay.unit_words} 64-bit words of device memory a CTA; at "
+        f"{occupancy}")
+    return {"P": P, "C": C, "B": B, "columns": K, "ms": ms,
+            "plain_ms": plain_ms, "max_abs_err": float(
+                (best[0] - tbest).abs().max()),
+            "unit_words": lay.unit_words, "smem_bytes": lay.smem,
+            "cluster": lay.cluster, "ppt": lay.ppt}
+
+
 def _segments_equal_whole(da, m, seqs, lens, K, what):
     whole = da.read_stats(m, seqs, lens, return_path=True)
     out = da.read_stats_ckpt(m, seqs, lens, return_path=True, segment=K)
@@ -1002,10 +1065,12 @@ def phase_long_reads(dev, kernels, cell, L, B, tail=False):
     bounds = long_read_bounds(m, B, LONG_K, width)
     lay, max_clusters, occupancy = wide_occupancy(kernels, m)
     # the instantiation this model runs: its origin type, positions a
-    # thread and units a lane of warp 0 (0: units over several warps) in
-    # the mangled name
-    upl = -(-m.C // 32) if m.C <= kernels.MAX_UNITS else 0
-    inst = f"I{'i' if width == 4 else 's'}Li{lay.ppt}ELi{upl}E"
+    # thread, units a lane of warp 0 (0: units over several warps) and
+    # whether the unit arrays are in device memory, in the mangled name
+    off = lay.unit_words > 0
+    upl = -(-m.C // 32) if m.C <= kernels.MAX_UNITS and not off else 0
+    inst = (f"I{'i' if width == 4 else 's'}Li{lay.ppt}ELi{upl}ELb{int(off)}"
+            f"E")
     ptx = [v for k, v in ptxas_lines(kernels, "viterbi_forward_wide_kernel")
            .items() if inst in k]
     regs, spill_st, spill_ld = ptx[0] if ptx else (None, None, None)
@@ -1088,10 +1153,47 @@ def phase_long_reads(dev, kernels, cell, L, B, tail=False):
                         "tail": tail}}
 
 
-def phase_local_align(dev, kernels):
+def align_builds(kernels, sources):
+    """Build other sources of local_align, all compilers at once, each
+    exporting the one-probe C entry point it had before its redesign
+    (reads, lengths, probe, score, end, B, L, m, stream).
+    Returns {path: CDLL}."""
+    import ctypes
+    jobs = [(os.path.abspath(src), kernels.BUILD_DIR / f"libalign_alt{i}.so")
+            for i, src in enumerate(sources)]
+    if not jobs:
+        return {}
+    kernels.compile_sources(jobs)
+    libs = {}
+    for src, (_, out) in zip(sources, jobs):
+        lib = ctypes.CDLL(str(out))
+        fn = lib.advntr_local_align
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + \
+            [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        libs[src] = lib
+    return libs
+
+
+def phase_local_align(dev, kernels, sources):
     """local_align against its plain version on 3,000-base and
-    12,288-base reads, forward and reversed: exact; timed."""
+    12,288-base reads, forward and reversed, one pass a launch and the four
+    passes of a locus (two flanks, both directions) in one launch: exact;
+    timed beside the bound and the chain floor (the chunk's rows, its
+    warm-up and the lanes' skew, times a step of a lone warp); with
+    ``sources`` (the one-probe entry point of the kernel before its
+    redesign), those kernels held to the plain version and timed in turns
+    with the committed one's pass and four passes.  Each
+    time is the device's: one call between two events after a write that
+    empties the L2 (``launch_ms``; the wrapper's own host time would hide
+    a kernel this short), the wrapper's clear of its work words
+    included."""
     from advntr_tpu_torch.ops import align
+    builds = align_builds(kernels, sources)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    # long enough to write that the host has enqueued the wrapper's clears
+    # and launch before it ends (a 256 MB write was not, at times)
+    flush = torch.empty(1 << 30, dtype=torch.uint8, device=dev)
     out = {}
     for L, B in ((3008, 64), (12288, 16)):
         rng = np.random.default_rng(L)
@@ -1106,16 +1208,18 @@ def phase_local_align(dev, kernels):
             reads[i, at:at + 100][flips] = rng.integers(0, 4, flips.sum())
         rev = np.stack([np.concatenate([row[:n][::-1], row[n:]])
                         for row, n in zip(reads, lengths)])
+        on = lambda x: torch.as_tensor(x, device=dev)
         err = 0
+        plain = {}
         for name, r, p in (("forward", reads, probe),
                            ("reversed", rev, probe[::-1].copy())):
-            args = [torch.as_tensor(x, device=dev)
-                    for x in (r, lengths, p)]
+            args = [on(x) for x in (r, lengths, p)]
             got = align.local_align_batch(*args)
             t0 = time.perf_counter()
             want = align.local_align_batch_reference(*args)
             torch.cuda.synchronize()
             plain_ms = (time.perf_counter() - t0) * 1e3
+            plain[name] = want
             err = max(err, *(int((g - w).abs().max())
                              for g, w in zip(got, want)))
             check(torch.equal(got[0], want[0])
@@ -1123,16 +1227,100 @@ def phase_local_align(dev, kernels):
                   f"local_align differs from its plain version at L={L}, "
                   f"{name}")
             check(int(got[0][2:].min()) > 50, "local_align found no probe")
-        ms = time_ms(lambda: align.local_align_batch(*args))
+            for src, lib in builds.items():
+                score = torch.zeros(B, dtype=torch.int32, device=dev)
+                end = torch.zeros_like(score)
+                code = lib.advntr_local_align(
+                    args[0].data_ptr(), args[1].data_ptr(),
+                    args[2].data_ptr(), score.data_ptr(), end.data_ptr(), B,
+                    L, 100, torch.cuda.current_stream().cuda_stream)
+                torch.cuda.synchronize()
+                check(code == 0 and torch.equal(score, want[0])
+                      and torch.equal(end, want[1]),
+                      f"{src} differs from the plain version at L={L}")
+        ms = launch_ms(lambda: align.local_align_batch(*args), flush)
+        wrapper_ms = time_ms(lambda: align.local_align_batch(*args))
+        # the four passes of a locus in one launch: the probe and a second
+        # one, each forward against the reads and reversed against the
+        # reversed reads
+        second = rng.integers(0, 4, 100).astype(np.int8)
+        table = on(np.stack([probe, second, probe[::-1], second[::-1]]))
+        both, lens = on(np.stack([reads, rev])), on(lengths)
+        # every input on the card before the clock starts: a copy from
+        # the host inside would wait for the write before the launch
+        passes = lambda: align.local_align_passes(
+            both, lens, table, [100] * 4, [0, 0, 1, 1])
+        n0 = kernels.LAUNCHES["local_align"]
+        score4, end4 = passes()
+        check(kernels.LAUNCHES["local_align"] == n0 + 1,
+              "the four passes took more than one launch")
+        for i, name in ((0, "forward"), (2, "reversed")):
+            check(torch.equal(score4[i], plain[name][0])
+                  and torch.equal(end4[i], plain[name][1]),
+                  f"local_align's four-pass launch differs at L={L}, {name}")
+        for i in (1, 3):
+            want = align.local_align_batch_reference(
+                both[i // 2], lens, table[i])
+            check(torch.equal(score4[i], want[0])
+                  and torch.equal(end4[i], want[1]),
+                  f"local_align's four-pass launch differs at L={L}, pass "
+                  f"{i}")
+        passes_ms = launch_ms(passes, flush)
+        # a step: one read in one chunk is one warp's chain
+        chunks = kernels.align_chunks(1, B, L, 100, sms)
+        chosen = kernels.align_chunks
+        kernels.align_chunks = lambda *a: 1
+        one = [on(x) for x in (reads[:1], lengths[:1], probe)]
+        try:
+            lone = launch_ms(lambda: align.local_align_batch(*one), flush,
+                             iters=10)
+        finally:
+            kernels.align_chunks = chosen
+        nl = 25
+        step_ns = lone / (L + nl - 1) * 1e6
+        rows = -(-L // chunks)
+        floor = (rows + 200 + nl - 1) * step_ns * 1e-6
+        turns = {}
+        if builds:
+            runs = {"committed": lambda: align.local_align_batch(*args),
+                    "committed, four passes": passes}
+            for src, lib in builds.items():
+                score = torch.zeros(B, dtype=torch.int32, device=dev)
+                end = torch.zeros_like(score)
+                runs[src] = lambda lib=lib, score=score, end=end: \
+                    lib.advntr_local_align(
+                        args[0].data_ptr(), args[1].data_ptr(),
+                        args[2].data_ptr(), score.data_ptr(), end.data_ptr(),
+                        B, L, 100, torch.cuda.current_stream().cuda_stream)
+            for name in (list(runs) + list(runs)[::-1]) * 2:
+                turns.setdefault(name, []).append(
+                    launch_ms(runs[name], flush, iters=20))
+            log(f"local_align in turns at B={B}, L={L} (reversed pass, "
+                f"device time, medians of 20): " + "; ".join(
+                    f"{k} {', '.join(f'{t:.4f}' for t in v)} ms"
+                    for k, v in turns.items()))
         active = int(lengths.sum())
         bound = max((active + 12 * B + 100) / HBM_BYTES_PER_S,
                     12 * 100 * active / F32_OPS_PER_S) * 1e3
+        bound4 = max((2 * active + 24 * 4 * B + 400) / HBM_BYTES_PER_S,
+                     4 * 12 * 100 * active / F32_OPS_PER_S) * 1e3
         out[L] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "B": B,
-                  "err": err}
+                  "err": err, "wrapper_ms": wrapper_ms,
+                  "passes_ms": passes_ms,
+                  "passes_bound_ms": bound4, "chunks": chunks, "rows": rows,
+                  "step_ns": step_ns, "chain_floor_ms": floor,
+                  "in_turns": {k: min(v) for k, v in turns.items()}}
         log(f"local_align: B={B}, L={L}, probe 100: (score, end) equal to "
-            f"the plain scan, forward and reversed; kernel {ms:.3f} ms, "
-            f"plain scan on the card {plain_ms:.0f} ms, bound "
-            f"{bound:.5f} ms (operations)")
+            f"the plain scan, forward and reversed, one pass a launch and "
+            f"four in one; kernel {ms:.4f} ms a pass on the device "
+            f"({chunks} chunks of {rows} rows a read, {B * chunks} warps; "
+            f"{wrapper_ms:.4f} ms through the wrapper with the host's "
+            f"enqueue), four passes {passes_ms:.4f} ms; plain scan on the "
+            f"card {plain_ms:.0f} ms; "
+            f"bound {bound:.5f} ms (operations; four passes {bound4:.5f}); "
+            f"a step of a lone warp {step_ns:.2f} ns, chain floor "
+            f"({rows} + 200 + {nl - 1} steps) {floor:.4f} ms")
+    del flush
     return out
 
 
@@ -1182,6 +1370,9 @@ def phase_pacbio_cli(kernels):
                       for shape, P in ckpt_calls),
               f"the long-tract locus did not take the checkpointed path: "
               f"{ckpt_calls}")
+        check(launches["local_align"] == len(truth),
+              f"PacBio panel: {launches['local_align']} local_align "
+              f"launches for {len(truth)} loci, not one a locus")
         lines = text.split()
         calls = dict(zip(lines[0::2], lines[1::2]))
         wrong = {v: (calls.get(str(v)), ab) for v, ab in truth.items()
@@ -1343,6 +1534,7 @@ def main() -> None:
     flag = lambda name: sys.argv[sys.argv.index(name) + 1].split(",") \
         if name in sys.argv[1:] else []
     sources = flag("--walk-source")
+    align_sources = flag("--align-source")
     forward_sources = flag("--forward-source")
     forward_variants = flag("--forward-variant")
     smi = phase_device()
@@ -1363,12 +1555,13 @@ def main() -> None:
     phase_recruitment(dev)
     launches, warm_launches = phase_end_to_end(_kernels, profile)
     wide_err = phase_wide_vs_twins(dev, _kernels)
+    units_off = phase_wide_units_off(dev, _kernels)
     long_ = phase_long_reads(dev, _kernels, (m, seqs, lens), LONG_L, LONG_B)
     del seqs, lens
     if builds:
         phase_wide_sources(_kernels, builds, variants, long_["segment"])
     del long_["segment"]
-    align_ = phase_local_align(dev, _kernels)
+    align_ = phase_local_align(dev, _kernels, align_sources)
     pacbio_launches = phase_pacbio_cli(_kernels)
     tail = None
     if long_tail:
@@ -1434,6 +1627,7 @@ def main() -> None:
          "batch_bound_ms": long_["batch_bound_ms"],
          "batch_peak_mib": long_["peak_mib"],
          "check_shape_max_abs_err": wide_err,
+         "units_in_device_memory": units_off,
          "cell_ms": ms["B1_wide_at_cell"][1],
          "cell_first_entry_ms": ms["B1_wide_at_cell"][0],
          "long_read_panel_first_entry_launches": pacbio_launches["forward"]},
@@ -1446,9 +1640,20 @@ def main() -> None:
          "max_abs_err": max(a["err"] for a in align_.values()),
          "ms": align_[3008]["ms"], "plain_ms": align_[3008]["plain_ms"],
          "bound_ms": align_[3008]["bound_ms"], "bound_by": "operations",
-         "library_ms": None, "ms_12288": align_[12288]["ms"],
+         "library_ms": None, "wrapper_ms": align_[3008]["wrapper_ms"],
+         "chunks": align_[3008]["chunks"],
+         "step_ns": align_[3008]["step_ns"],
+         "chain_floor_ms": align_[3008]["chain_floor_ms"],
+         "four_passes_ms": align_[3008]["passes_ms"],
+         "four_passes_bound_ms": align_[3008]["passes_bound_ms"],
+         "in_turns_ms": align_[3008]["in_turns"],
+         "ms_12288": align_[12288]["ms"],
          "plain_ms_12288": align_[12288]["plain_ms"],
-         "bound_ms_12288": align_[12288]["bound_ms"]},
+         "bound_ms_12288": align_[12288]["bound_ms"],
+         "chunks_12288": align_[12288]["chunks"],
+         "chain_floor_ms_12288": align_[12288]["chain_floor_ms"],
+         "four_passes_ms_12288": align_[12288]["passes_ms"],
+         "in_turns_ms_12288": align_[12288]["in_turns"]},
     ]
     if tail is not None:
         kernels[2]["tail"] = tail

@@ -517,7 +517,7 @@ def test_walk_reads_unstaged_tables(cuda):
 def test_local_align_kernel_matches_plain(cuda, L, probe_len):
     """(score, end) of the kernel equal the plain scan's exactly, on
     ragged reads (lengths 1 and L among them) that carry noisy copies of
-    the probe, in both directions as anchor_probe_batch runs them."""
+    the probe, forward and reversed, one pass a launch."""
     from advntr_tpu_torch.ops import align
     rng = np.random.default_rng(L + probe_len)
     B = 12
@@ -542,3 +542,109 @@ def test_local_align_kernel_matches_plain(cuda, L, probe_len):
         score_w, end_w = align.local_align_batch_reference(*args)
         assert torch.equal(score, score_w) and torch.equal(end, end_w)
         assert int(score[2:].min()) > probe_len // 2
+
+
+@pytest.mark.parametrize("chunks", [None, 1, 3, 40])
+def test_local_align_passes_in_one_launch_match_plain(cuda, chunks,
+                                                      monkeypatch):
+    """Four passes in one launch (two probes of different lengths, each
+    forward against the reads and reversed against the reversed reads, as
+    anchor_probes_batch runs them) against the plain scan, pass by pass;
+    the reads split as the wrapper chooses and into 1, 3 and 40 chunks
+    (40: chunks shorter than their warm-up), with noisy copies of the
+    probes across the chunk borders and exact copies in two chunks."""
+    from advntr_tpu_torch.ops import align
+    if chunks is not None:
+        monkeypatch.setattr(_kernels, "align_chunks",
+                            lambda *a: chunks)
+    rng = np.random.default_rng(31)
+    B, L = 24, 4000
+    probes = [rng.integers(0, 4, 100).astype(np.int8),
+              rng.integers(0, 4, 37).astype(np.int8)]
+    reads = rng.integers(0, 4, (B, L)).astype(np.int8)
+    lengths = rng.integers(1, L + 1, B).astype(np.int32)
+    lengths[:3] = [L, 1, 0]
+    for i in range(3, B):
+        p = probes[i % 2]
+        at = int(rng.integers(0, max(1, lengths[i] - len(p))))
+        if i % 3 == 0:            # across a border of 3 or 40 chunks
+            at = max(0, min((L // 3 if i % 2 else L // 40) - 20,
+                            lengths[i] - len(p)))
+        reads[i, at:at + len(p)] = p
+        flips = rng.random(len(p)) < 0.08
+        reads[i, at:at + len(p)][flips] = rng.integers(0, 4, flips.sum())
+    reads[4, 10:110] = probes[0]
+    reads[4, L - 200:L - 100] = probes[0]
+    lengths[4] = L
+    rev = np.stack([np.concatenate([row[:n][::-1], row[n:]])
+                    for row, n in zip(reads, lengths)])
+    table = np.zeros((4, 128), dtype=np.int8)
+    for i, p in enumerate(probes):
+        table[i, :len(p)] = p
+        table[2 + i, :len(p)] = p[::-1]
+    on = lambda x: torch.as_tensor(x, device=cuda)
+    plen, rsel = [100, 37, 100, 37], [0, 0, 1, 1]
+    n0 = _kernels.LAUNCHES["local_align"]
+    score, end = align.local_align_passes(
+        on(np.stack([reads, rev])), on(lengths), on(table), plen, rsel)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["local_align"] == n0 + 1
+    for i in range(4):
+        r = (reads, rev)[rsel[i]]
+        s_w, e_w = align.local_align_batch_reference(
+            on(r), on(lengths), on(table[i, :plen[i]]))
+        assert torch.equal(score[i], s_w) and torch.equal(end[i], e_w), i
+    assert (int(score[0, 4]), int(end[0, 4])) == (100, 110)
+
+
+def test_anchor_probes_batch_on_card_equals_cpu(cuda):
+    """The finder's one launch a locus: both flanks in both directions on
+    the card give the CPU's (score, start, end) triples."""
+    from advntr_tpu_torch.ops import align
+    rng = random.Random(41)
+    left = rand_seq(51, 100)
+    right = rand_seq(52, 100)
+    reads = []
+    for _ in range(14):
+        hap = rand_seq(rng.randint(0, 99), rng.randint(200, 2500))
+        cut = rng.randint(0, len(hap))
+        read = hap[:cut] + left + hap[cut:cut + 300] + right + hap[cut:]
+        reads.append(read if rng.random() < 0.5 else dna.revcomp(read))
+    rows = [dna.encode(r) for r in reads]
+    probes = [dna.encode(left), dna.encode(right)]
+    n0 = _kernels.LAUNCHES["local_align"]
+    got = align.anchor_probes_batch(rows, probes, device=cuda)
+    assert _kernels.LAUNCHES["local_align"] == n0 + 1
+    assert got == align.anchor_probes_batch(rows, probes, device="cpu")
+
+
+@pytest.mark.parametrize("P,C", [(20480, 3414), (32768, 5462)])
+def test_wide_entry_with_units_in_device_memory_matches_twin(cuda, P, C):
+    """Windows past 16,384 positions with 6 bp motifs (random tables, no
+    host compile): the per-unit arrays do not fit in shared memory and
+    each CTA keeps them in its slice of device memory.  Two 6-column
+    segments, the second from the first's exit state, against the twin:
+    planes, exit states, best and bstate bit for bit."""
+    from advntr_tpu_torch.synthetic import random_wide_model
+    m = random_wide_model(P, C, seed=P, device=cuda)
+    stack = m.as_stack()
+    lay = _kernels.wide_layout(P, m.nb, C, m.Wd.shape[0], m.Wu.shape[0])
+    assert lay.unit_words > 0 and lay.ppt == 2
+    rng = np.random.default_rng(P)
+    seqs = torch.as_tensor(rng.integers(0, 4, (1, 2, 12)), dtype=torch.int8,
+                           device=cuda)
+    lengths = torch.tensor([[12, 5]], dtype=torch.int32, device=cuda)
+    state = twin = None
+    n0 = _kernels.LAUNCHES["forward_wide"]
+    for c0 in (0, 6):
+        cols = seqs[:, :, c0:c0 + 6].contiguous()
+        out = _kernels.forward_segment(stack, cols, lengths, False, state, c0)
+        twin, tMI, tXH = vf.fused_forward_segment_reference(
+            m, cols[0], lengths[0], False, twin, c0)
+        assert torch.equal(out[2][0], tMI) and torch.equal(out[3][0], tXH)
+        assert torch.equal(out[4][0][0], twin[0])
+        assert torch.equal(out[4][1][0], twin[1])
+        state = out[4]
+    assert _kernels.LAUNCHES["forward_wide"] == n0 + 2
+    best, bstate = vf.forward_state_best(m, twin)
+    assert torch.equal(out[0][0], best) and torch.equal(out[1][0], bstate)

@@ -120,6 +120,37 @@ def test_chunked_batches_match_reference(monkeypatch):
     assert got == ref
 
 
+@pytest.mark.parametrize("value", ["0", "-4", "12.5", "many"])
+def test_recruit_chunk_refuses_a_bad_limit(monkeypatch, value):
+    """ADVNTR_TPU_RECRUIT_CHUNK below 1 or not an integer: a ValueError
+    that names the variable, where 0 failed deep in a range() and a
+    negative value recruited nothing."""
+    from advntr_tpu_torch.ops.kmer_filter import recruit_chunk
+    monkeypatch.setenv("ADVNTR_TPU_RECRUIT_CHUNK", value)
+    with pytest.raises(ValueError, match="ADVNTR_TPU_RECRUIT_CHUNK"):
+        recruit_chunk(100)
+    filt = build_recruitment_filter([_orchestration_ref()], [1],
+                                    device="cpu")
+    with pytest.raises(ValueError, match="ADVNTR_TPU_RECRUIT_CHUNK"):
+        filter_reads(filt, iter([("r", "AC" * 60)]))
+
+
+def test_recruit_chunk_takes_a_good_limit(monkeypatch):
+    from advntr_tpu_torch.ops.kmer_filter import DEFAULT_CHUNK, recruit_chunk
+    monkeypatch.setenv("ADVNTR_TPU_RECRUIT_CHUNK", "1")
+    assert recruit_chunk(100) == 1
+    monkeypatch.delenv("ADVNTR_TPU_RECRUIT_CHUNK")
+    assert recruit_chunk(6719) == DEFAULT_CHUNK
+
+
+def _orchestration_ref():
+    ref = ReferenceVNTR(1, "CACAGT", 1000, "chr1")
+    ref.repeat_segments = ["CACAGT"] * 3
+    ref.left_flanking_region = "AC" * 60
+    ref.right_flanking_region = "GT" * 60
+    return ref
+
+
 def test_keywords_and_filter_orchestration():
     ref = ReferenceVNTR(1, "CACAGT", 1000, "chr1")
     ref.repeat_segments = ["CACAGT"] * 3

@@ -21,7 +21,7 @@ from advntr_tpu_torch import cli, dna
 from advntr_tpu_torch.config import Config
 from advntr_tpu_torch.engine import device_analytics as tda
 from advntr_tpu_torch.engine.analyzer import GenomeAnalyzer
-from advntr_tpu_torch.engine.finder import VNTRFinder
+from advntr_tpu_torch.engine.finder import LocusModelCache, VNTRFinder
 from advntr_tpu_torch.engine.simulate import haplotype_sequence, mutate
 from advntr_tpu_torch.io.bam import BamRead, BamReader, BamWriter, build_bai
 from advntr_tpu_torch.models.db import (create_vntrs_database,
@@ -250,6 +250,85 @@ def test_cli_pacbio_fasta_equals_reference(tmp_path):
     naive = open(out).read().split()
     assert naive[0::2] == lines[0::2]
     assert all(call == "None" or "/" in call for call in naive[1::2])
+
+
+@pytest.mark.parametrize("step", ["model build", "haplotyper"])
+def test_cli_pacbio_host_error_gives_the_error_row(tmp_path, monkeypatch,
+                                                   step):
+    """A host step that fails in one locus (its model build; the
+    haplotyper of ``--naive``) prints that locus's Error row and the run
+    goes on to the next locus, with the reference analyzer's text on the
+    same inputs and the same failure."""
+    from advntr_tpu.engine.haplotyper import PacBioHaplotyper as JHap
+    from advntr_tpu_torch.engine.haplotyper import PacBioHaplotyper
+    db, fa, truth, _ = write_pacbio_panel(str(tmp_path), n_loci=3,
+                                          coverage=6, long_locus=None)
+    bad = sorted(truth)[0]
+    naive = step == "haplotyper"
+    if naive:
+        for cls in (PacBioHaplotyper, JHap):
+            orig = cls.get_error_corrected_haplotypes
+            calls = []
+
+            def corrected(self, *a, orig=orig, calls=calls, **kw):
+                calls.append(1)
+                if len(calls) == 1:
+                    raise RuntimeError("haplotyper failed")
+                return orig(self, *a, **kw)
+            monkeypatch.setattr(cls, "get_error_corrected_haplotypes",
+                                corrected)
+    else:
+        # the port's host build (the upload to the device is not host work)
+        def payload(self, key, ref_vntr, orig=LocusModelCache._payload):
+            if ref_vntr.id == bad:
+                raise RuntimeError("model build failed")
+            return orig(self, key, ref_vntr)
+        monkeypatch.setattr(LocusModelCache, "_payload", payload)
+
+        def get_model(self, *a, orig=JFinder.get_model, **kw):
+            if self.reference_vntr.id == bad:
+                raise RuntimeError("model build failed")
+            return orig(self, *a, **kw)
+        monkeypatch.setattr(JFinder, "get_model", get_model)
+    out = str(tmp_path / "out.txt")
+    cli.main(["genotype", "-p", "-f", fa, "-m", db, "--working_directory",
+              str(tmp_path), "--disable_logging", "-o", out, "--device",
+              "cpu"] + (["--naive"] if naive else []))
+    text = open(out).read()
+    ref_out = io.StringIO()
+    refs = jload(db)
+    JAnalyzer(refs, [r.id for r in refs], str(tmp_path) + "/", "text",
+              config=JConfig().with_platform(pacbio=True),
+              out=ref_out).find_repeat_counts_from_pacbio_reads(
+                  fa, naive=naive)
+    assert text == ref_out.getvalue()
+    lines = text.split()
+    calls = dict(zip(lines[0::2], lines[1::2]))
+    assert calls[str(bad)] == "Error"
+    assert len(calls) == len(truth)
+    if not naive:
+        assert all(calls[str(v)] == "%d/%d" % ab
+                   for v, ab in truth.items() if v != bad)
+
+
+@pytest.mark.parametrize("error", [
+    torch.cuda.OutOfMemoryError("CUDA out of memory"),
+    RuntimeError("CUDA error: an illegal memory access was encountered")])
+def test_cli_pacbio_device_error_propagates(tmp_path, monkeypatch, error):
+    """An error of the model's upload to the device is not a host step's:
+    ``genotype -p`` raises it instead of printing an Error row."""
+    from advntr_tpu_torch.ops.struct_model import TorchStructModel
+    db, fa, truth, _ = write_pacbio_panel(str(tmp_path), n_loci=2,
+                                          coverage=4, long_locus=None)
+
+    def upload(*a, **kw):
+        raise error
+    monkeypatch.setattr(TorchStructModel, "from_payload", upload)
+    out = str(tmp_path / "out.txt")
+    with pytest.raises(type(error), match="CUDA"):
+        cli.main(["genotype", "-p", "-f", fa, "-m", db,
+                  "--working_directory", str(tmp_path), "--disable_logging",
+                  "-o", out, "--device", "cpu"])
 
 
 # ---- a multi-kb lattice (tests/test_pacbio_long_lattice.py) ----------------

@@ -8,11 +8,12 @@ import dataclasses
 import re
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 from advntr_tpu_torch.ops import _kernels
-from advntr_tpu_torch.ops.struct_model import TorchStructModel
+from advntr_tpu_torch.ops.struct_model import POS, TorchStructModel
 from advntr_tpu_torch.synthetic import locus_model
 
 torch.set_num_threads(1)
@@ -63,19 +64,63 @@ def test_layout_takes_asked_positions_a_thread():
         _layout(1664, 64, 6, 1, 1)
 
 
-# (P, delete rounds, the most units the entry takes): past them its shared
-# memory runs out.  Up to 16 x 1,024 positions a slice is at most 1,024
-# wide, so the limit stays 3,289 units; with two positions a thread the
-# slice grows and the limit falls
+# (P, delete rounds, the most units whose arrays shared memory holds): past
+# them the per-unit and per-block arrays move to device memory.  Up to
+# 16 x 1,024 positions a slice is at most 1,024 wide, so the limit stays
+# 3,289 units; with two positions a thread the slice grows and the limit
+# falls
 UNIT_LIMITS = [(12288, 14, 3289), (16384, 14, 3289), (20480, 15, 2700),
                (32768, 15, 545)]
 
 
 @pytest.mark.parametrize("P,rounds,c_max", UNIT_LIMITS)
 def test_layout_unit_limit(P, rounds, c_max):
-    assert _layout(P, c_max, rounds).smem <= _kernels.SMEM_MAX
-    with pytest.raises(ValueError, match="bytes"):
-        _layout(P, c_max + 1, rounds)
+    on_chip = _layout(P, c_max, rounds)
+    assert on_chip.unit_words == 0 and on_chip.smem <= _kernels.SMEM_MAX
+    off = _layout(P, c_max + 1, rounds)
+    assert off.unit_words > 0 and off.smem < on_chip.smem
+    # C + 1 units a CTA: the chain's two buffers and the block ends, then
+    # I0, the hubs and their origins (nb = C + 2 each, 32-bit)
+    assert off.unit_words == 3 * (c_max + 1) + 1 + (3 * (c_max + 3) + 1) // 2
+    assert (off.cluster, off.slice) == (on_chip.cluster, on_chip.slice)
+
+
+# (P, cluster, shared bytes with the per-unit arrays in device memory) at
+# motifs of 6 bp, C = ceil(P / 6) and one more, 15 rounds: what C-1 of
+# ROADMAP.md reckons
+SHORT_MOTIF_WINDOWS = [(20480, 16, 153036), (24576, 16, 176588),
+                       (32768, 16, 223692)]
+
+
+@pytest.mark.parametrize("extra", [0, 1])
+@pytest.mark.parametrize("P,n,smem", SHORT_MOTIF_WINDOWS)
+def test_layout_takes_long_windows_with_short_motifs(P, n, smem, extra):
+    """Past 16 x 1,024 positions a window of 6 bp motifs has more units
+    than shared memory holds beside the slice: the layout keeps them in
+    device memory and takes the window."""
+    C = -(-P // 6) + extra
+    lay = _layout(P, C, 15)
+    assert (lay.cluster, lay.ppt, lay.smem) == (n, 2, smem)
+    assert lay.unit_words == 3 * C + 1 + (3 * (C + 2) + 1) // 2
+
+
+def test_layout_shared_route_where_the_units_fit():
+    """The long-read shape and the forced cell keep every per-unit array in
+    shared memory, at the carve they had before the device-memory route."""
+    assert _layout(2560, 64, 9) == _kernels.WideLayout(3, 864, 864, 1,
+                                                       102940, 0)
+    assert _layout(512, 16, 9).unit_words == 0
+
+
+def test_layout_refuses_past_32768_positions():
+    with pytest.raises(ValueError, match="positions a thread"):
+        _layout(32769, -(-32769 // 6), 15)
+
+
+def test_shared_limit_matches_the_source():
+    value = int(re.search(r"constexpr size_t WIDE_SMEM_MAX = (\d+);",
+                          SRC).group(1))
+    assert value == _kernels.SMEM_MAX
 
 
 @pytest.mark.parametrize("P", [1536, 2560, 3072, 6144, 12288, 16384])
@@ -101,7 +146,7 @@ def test_layout_counts_rounds_that_run():
 @pytest.mark.parametrize("shape", [
     dict(P=2 * _kernels.WIDE_MAX_CLUSTER * _kernels.MAX_THREADS + 1, C=64),
     dict(P=2560, C=64, cluster=_kernels.WIDE_MAX_CLUSTER + 1),
-    dict(P=16384, C=4000),
+    dict(P=32768, C=5462, cluster=8),
 ])
 def test_layout_refuses_a_shape_beyond(shape):
     shape = dict(shape)
@@ -135,3 +180,24 @@ def test_limits_match_the_source(name):
     value = int(re.search(rf"constexpr int {name} = (\d+);", SRC).group(1))
     assert value == getattr(_kernels, name)
     assert "cudaFuncAttributeNonPortableClusterSizeAllowed" in SRC
+
+
+def test_random_wide_model_is_laid_out_like_the_engines():
+    """The random model the card checks use past the shared unit limit:
+    blocks in order (the flank, one a unit, the suffix), unit ends at the
+    last position of each unit block, block ends the only extraction
+    points, and a shape whose unit arrays the layout moves to device
+    memory."""
+    from advntr_tpu_torch.synthetic import random_wide_model
+    m = random_wide_model(20480, 3414, seed=11, device="cpu")
+    blk = m.blk_idx.numpy()
+    assert (m.nb, m.suffix_last) == (3416, 20479)
+    assert (blk[:1100] == 0).all() and (blk[-100:] == 3415).all()
+    assert (blk[1:] >= blk[:-1]).all() and set(blk) == set(range(3416))
+    ends = m.unit_last.numpy()
+    assert (blk[ends] == range(1, 3415)).all()
+    assert (blk[ends + 1] == blk[ends] + 1).all()
+    xm = m.pos[POS["xm"]].numpy()
+    assert set(np.flatnonzero(xm > -1e29)) <= set(ends) | {20479}
+    lay = _kernels.wide_layout(m.P, m.nb, m.C, m.Wd.shape[0], m.Wu.shape[0])
+    assert lay.unit_words > 0 and m.Wd.shape[0] == 11
