@@ -1,10 +1,11 @@
 """Command-line interface of the PyTorch/CUDA port: ``genotype`` for
-Illumina alignments (BAM/SAM/CRAM) and, with ``-p``, for PacBio reads from
-an alignment or a FASTA/FASTQ file, and ``viewmodel``.
+Illumina alignments (BAM/SAM/CRAM), with ``-fs`` (frameshift calls of the
+loci in ``FRAMESHIFT_VNTRS``) and ``-u``/``--em`` (one model update a
+locus, by decoded paths or by Baum-Welch), and, with ``-p``, for PacBio
+reads from an alignment or a FASTA/FASTQ file; and ``viewmodel``.
 
-The flag surface is the reference's (advntr_tpu/cli.py:23-116) plus an
-explicit ``--device``; flags whose paths are not ported yet exit with an
-error that names their ROADMAP.md item.
+The ``genotype`` and ``viewmodel`` flags are the reference's
+(advntr_tpu/cli.py:23-116) plus an explicit ``--device``.
 """
 
 from __future__ import annotations
@@ -22,12 +23,7 @@ from advntr_tpu_torch.device import DEVICES, resolve_device
 DEFAULT_ILLUMINA_DB = "vntr_data/hg19_selected_VNTRs_Illumina.db"
 DEFAULT_PACBIO_DB = "vntr_data/hg19_selected_VNTRs_Pacbio.db"
 
-# flag -> why it cannot run yet
-NOT_PORTED = {
-    "frameshift": "-fs/--frameshift is ROADMAP.md item A10",
-    "update": "-u/--update (model re-estimation) is ROADMAP.md item A10",
-    "em": "--em (Baum-Welch update) is ROADMAP.md item A10",
-}
+FRAMESHIFT_VNTRS = [25561, 519759]
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -60,7 +56,8 @@ def build_parser() -> argparse.ArgumentParser:
 
     alg = g.add_argument_group("Algorithm options")
     alg.add_argument("-fs", "--frameshift", action="store_true",
-                     help="search for frameshifts (not ported yet)")
+                     help="search for frameshifts instead of copy number; "
+                          "supported VNTR IDs: %s" % FRAMESHIFT_VNTRS)
     alg.add_argument("-e", "--expansion", action="store_true",
                      help="determine long expansion from PCR-free data")
     alg.add_argument("-c", "--coverage", type=float, metavar="<float>",
@@ -79,10 +76,11 @@ def build_parser() -> argparse.ArgumentParser:
     other.add_argument("-m", "--models", type=str, metavar="<file>",
                        default=None)
     other.add_argument("-t", "--threads", type=int, metavar="<int>", default=1)
-    other.add_argument("-u", "--update", action="store_true", default=False,
-                       help="model update (not ported yet)")
+    other.add_argument("-u", "--update", action="store_true", default=False)
     other.add_argument("--em", action="store_true", default=False,
-                       help="Baum-Welch model update (not ported yet)")
+                       help="with --update: Baum-Welch (posterior) model "
+                            "re-estimation instead of Viterbi-path "
+                            "recounting")
     other.add_argument("-vid", "--vntr_id", type=str, metavar="<text>",
                        default=None, help="comma-separated list of VNTR IDs")
 
@@ -101,9 +99,6 @@ def genotype(args) -> None:
     from advntr_tpu_torch.models.db import load_unique_vntrs_data
     from advntr_tpu_torch.engine.analyzer import GenomeAnalyzer
 
-    for flag, why in NOT_PORTED.items():
-        if getattr(args, flag):
-            _err("not available in advntr_tpu_torch yet: " + why)
     if args.alignment_file is None and args.fasta is None:
         _err("No input specified. Please specify alignment file or fasta file")
     input_file = args.alignment_file if args.alignment_file else args.fasta
@@ -151,10 +146,16 @@ def genotype(args) -> None:
             analyzer.find_repeat_counts_from_pacbio_reads(
                 input_file, args.log_pacbio_reads, args.accuracy_filter,
                 args.naive)
+        elif args.frameshift:
+            if all(v in FRAMESHIFT_VNTRS for v in target_vntrs):
+                analyzer.find_frameshift_from_alignment_file(input_file)
+            else:
+                _err("--frameshift is not available for these VNTRs")
         else:
             analyzer.find_repeat_counts_from_alignment_file(
                 input_file, accuracy_filter=args.accuracy_filter,
-                average_coverage=average_coverage)
+                average_coverage=average_coverage, update=args.update,
+                em=args.em)
     finally:
         analyzer.model_cache.close()
         if args.outfile:

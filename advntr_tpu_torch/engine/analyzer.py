@@ -14,7 +14,9 @@ Counterpart of advntr_tpu/engine/analyzer.py (genotype paths).  Illumina:
 
 Long reads are scored one locus at a time (each locus's model is as wide
 as its longest read window): recruitment by flank keywords, then
-``VNTRFinder.find_repeat_count_pacbio``.
+``VNTRFinder.find_repeat_count_pacbio``.  So are the modes that read
+decoded paths: ``-u``/``--em`` (each locus re-estimates its own model)
+and ``-fs`` (a frameshift call a locus).
 
 A failure on the device (a kernel build or launch) propagates: there is
 no per-locus fallback around dispatch or collection.  A host-side error in
@@ -357,7 +359,9 @@ class GenomeAnalyzer:
 
     def find_repeat_counts_from_alignment_file(self, alignment_file: str,
                                                accuracy_filter: bool = False,
-                                               average_coverage=None) -> dict:
+                                               average_coverage=None,
+                                               update: bool = False,
+                                               em: bool = False) -> dict:
         if average_coverage:
             self._attach_coverage_corrector(alignment_file)
         ckpt_path = self._checkpoint_path(alignment_file)
@@ -383,7 +387,7 @@ class GenomeAnalyzer:
                         model_keys.append(key)
                     results.update(self._genotype_loci_grouped(
                         wave, bam, unmapped_by_vid, read_length,
-                        accuracy_filter, average_coverage,
+                        accuracy_filter, average_coverage, update, em,
                         ckpt_path=ckpt_path))
                     for key in model_keys:
                         self.model_cache.evict(*key)
@@ -408,9 +412,13 @@ class GenomeAnalyzer:
 
     def _genotype_loci_grouped(self, vids, bam, unmapped_by_vid, read_length,
                                accuracy_filter, average_coverage,
+                               update: bool = False, em: bool = False,
                                group_size: int = 8, ckpt_path=None):
         """Per-locus prep on the host, then same-shape loci scored as
-        groups of ``group_size`` on the device (analyzer.py:455-558)."""
+        groups of ``group_size`` on the device (analyzer.py:455-558).
+        Under ``update`` each locus re-estimates its own model, so each
+        takes the sequential ``find_repeat_count`` (analyzer.py:475-483);
+        an error of its host work gives its Error row."""
         error_result = (GenotypeResult(None, 0, 0, 0, 0), True)
         results: dict = {}
         prepped = {}
@@ -419,14 +427,28 @@ class GenomeAnalyzer:
             finder = self.vntr_finder[vid]
             try:
                 mapped = self.mapped_candidates(bam, finder, read_length)
-                lm = finder.get_model(read_length)
-                reads, rows, row_info = finder.prepare_rows(
-                    mapped, unmapped_by_vid[vid])
+                if not update:
+                    lm = finder.get_model(read_length)
+                    reads, rows, row_info = finder.prepare_rows(
+                        mapped, unmapped_by_vid[vid])
             except NotImplementedError:
                 raise
             except Exception as error:
                 logging.error("Error preparing VNTR %s: %s.", vid, error)
                 results[vid] = error_result
+                continue
+            if update:
+                try:
+                    results[vid] = (finder.find_repeat_count(
+                        mapped, unmapped_by_vid[vid],
+                        read_length=read_length,
+                        accuracy_filter=accuracy_filter,
+                        average_coverage=average_coverage, update=True,
+                        em=em), False)
+                except HostStepError as error:
+                    logging.error("Error genotyping VNTR %s: %s.", vid,
+                                  error)
+                    results[vid] = error_result
                 continue
             if not rows:
                 results[vid] = (finder.genotype_from_selected(
@@ -484,6 +506,30 @@ class GenomeAnalyzer:
             results[vid] = (finder.genotype_from_counts(
                 covered, flanking, n_sel, accuracy_filter,
                 average_coverage), False)
+
+    # ---- frameshift (analyzer.py:654-669) ----------------------------------
+
+    def find_frameshift_from_alignment_file(self, alignment_file: str) -> None:
+        """Print each target locus's ID and its frameshift call (or None).
+        A locus whose host work fails is logged and prints nothing, as in
+        the reference; a device error propagates."""
+        unmapped_by_vid = self.recruit_unmapped_reads(alignment_file)
+        with open_alignment(alignment_file, self.ref_filename) as bam:
+            read_length = self._median_read_length(bam)
+            for vid in self.target_vntr_ids:
+                finder = self.vntr_finder[vid]
+                try:
+                    with host_step():
+                        mapped = self.mapped_candidates(bam, finder,
+                                                        read_length)
+                    result = finder.find_frameshift(
+                        mapped, unmapped_by_vid[vid], read_length)
+                except HostStepError as error:
+                    logging.error("Error in frameshift for VNTR %s: %s.",
+                                  vid, error)
+                    continue
+                self._print(str(vid))
+                self._print(str(result))
 
     # ---- the long-read genotype workload (analyzer.py:671-716) -------------
 

@@ -30,10 +30,11 @@ import torch
 
 from advntr_tpu_torch import dna
 from advntr_tpu_torch.config import Config, DEFAULT_CONFIG
-from advntr_tpu_torch.engine.genotype import find_genotype
+from advntr_tpu_torch.engine.genotype import find_genotype, identify_frameshift
 from advntr_tpu_torch.engine.haplotyper import PacBioHaplotyper
 from advntr_tpu_torch.io.bam import get_reference_genome_style
-from advntr_tpu_torch.models.compiler import ModelArtifact, compile_graph
+from advntr_tpu_torch.models.compiler import (ModelArtifact, compile_graph,
+                                             expand_path)
 from advntr_tpu_torch.models.graph import build_read_matcher
 from advntr_tpu_torch.models.profile import profile_for_repeats
 from advntr_tpu_torch.models.struct_compiler import (StructModel,
@@ -64,6 +65,15 @@ class GenotypeResult:
     spanning_reads_count: int
     flanking_reads_count: int
     maximum_likelihood: float
+
+
+class FrameshiftCall(str):
+    """Frameshift candidate state name (a plain str, printed and compared
+    as the reference's) carrying the posterior indel report as attributes:
+    ``lr_support`` (the Viterbi-path indel count that fed the binomial LR)
+    and ``posterior`` (the frameshift_posterior dict or None)."""
+    lr_support: int = 0
+    posterior: dict | None = None
 
 
 @dataclasses.dataclass
@@ -108,6 +118,18 @@ class LocusModel:
     """Everything score_reads needs for one compiled locus model."""
     model: TorchStructModel        # padded device tables
     n_pad: int                     # state count padded to the bucket
+    art: ModelArtifact | None = None   # unpadded host artifact (names)
+
+    def visited_states(self, path) -> list[str]:
+        """A decoded artifact-space path as the full visited-state names
+        (``expand_path``), for the modes that read paths as text."""
+        if self.art is None or self.art.hop_choice is None:
+            raise ValueError(
+                "this locus model carries no hop_choice (a slim bank "
+                "payload): -fs and -u expand decoded paths into state "
+                "names and need the full payload; rebuild the bank without "
+                "ADVNTR_TPU_SLIM_BANK=1")
+        return expand_path(self.art, path)
 
     def shape_key(self) -> tuple:
         """Same-key loci share kernel shapes and score as one group (the
@@ -291,10 +313,17 @@ class LocusModelCache:
     def _upload(self, art, sm, n_pad) -> LocusModel:
         return LocusModel(
             model=TorchStructModel.from_payload(art, sm, self.device),
-            n_pad=n_pad)
+            n_pad=n_pad, art=art)
 
     def _build_from_payload(self, art, sm) -> LocusModel:
         return self._upload(*self._pad(art, sm))
+
+    def _build(self, g, art) -> LocusModel:
+        """The model of a graph compiled here (finder.py:290): the
+        re-estimated models of ``-u`` and ``--em``, not cached."""
+        with host_step():
+            padded = self._pad(art, build_structured(g, art))
+        return self._upload(*padded)
 
 
 def flank_pattern_homology(pattern: str, left_flank: str,
@@ -551,22 +580,26 @@ class VNTRFinder:
         return GenotypeResult(genotype, n_selected, len(covered_repeats),
                               len(flanking_repeats), max_prob)
 
-    def run_device(self, lm: LocusModel, batch, lengths) -> dict:
-        """Score a padded batch on the cache's device; numpy stats.  Long
-        lattices (multi-kb long-read windows) take the checkpointed
-        traceback (finder.py:772-781)."""
+    def run_device(self, lm: LocusModel, batch, lengths,
+                   return_paths: bool = False) -> dict:
+        """Score a padded batch on the cache's device; numpy stats, with
+        the decoded artifact-space paths (B, L) under "path" when
+        ``return_paths``.  Long lattices (multi-kb long-read windows) take
+        the checkpointed traceback (finder.py:772-781)."""
         seqs = torch.as_tensor(batch, device=self.device)
         lens = torch.as_tensor(lengths, device=self.device)
+        path = {"return_path": True} if return_paths else {}
         if seqs.shape[1] > CKPT_TRACEBACK_L:
             stats = da.read_stats_ckpt(lm.model, seqs, lens,
-                                       segment=CKPT_SEGMENT)
+                                       segment=CKPT_SEGMENT, **path)
         else:
-            stats = da.read_stats(lm.model, seqs, lens)
+            stats = da.read_stats(lm.model, seqs, lens, **path)
         return {k: v.cpu().numpy() for k, v in stats.items()}
 
     @time_usage
     def score_reads(self, mapped_reads, unmapped_reads, read_length: int,
-                    model=None, length_bucket: int = 32):
+                    model=None, length_bucket: int = 32,
+                    return_paths: bool = False):
         """Batch-score candidate reads; unmapped reads are scored in both
         orientations and the better one wins (vntr_finder.py:235-246).
         Returns (ScoredReads, raw stats)."""
@@ -576,7 +609,7 @@ class VNTRFinder:
         if not rows:
             return [], None
         batch, lengths = self.pad_rows(rows, length_bucket)
-        stats = self.run_device(lm, batch, lengths)
+        stats = self.run_device(lm, batch, lengths, return_paths)
         return self.collect_scored(reads, row_info, stats), stats
 
     # -- recruitment gate (reference: vntr_finder.py:179-190) ----------------
@@ -600,24 +633,156 @@ class VNTRFinder:
     # -- top-level Illumina genotyping ---------------------------------------
 
     def select_reads(self, mapped_reads, unmapped_reads, read_length: int,
-                     model=None):
+                     return_paths: bool = False, model=None):
         scored, stats = self.score_reads(mapped_reads, unmapped_reads,
-                                         read_length, model=model)
+                                         read_length, model=model,
+                                         return_paths=return_paths)
         return self.select_from_scored(scored, read_length), stats
+
+    def _decoded(self, lm: LocusModel, reads, stats):
+        """(sequence, visited-state names) of each scored read, its path
+        cut to its own length (finder.py:892-896)."""
+        return [(read.sequence, lm.visited_states(
+            stats["path"][read.row][:len(read.sequence)])) for read in reads]
+
+    # -- model updating (reference: iteratively_update_model,
+    #    vntr_finder.py:668-698) ---------------------------------------------
+
+    def _read_matcher(self, read_length: int, trans, emis):
+        """The locus's read-matcher graph over a repeat profile, with
+        ``read_length`` bp flanks."""
+        left = self.reference_vntr.left_flanking_region[-read_length:]
+        right = self.reference_vntr.right_flanking_region[:read_length]
+        return build_read_matcher(left, right, trans, emis,
+                                  self.get_copies_for_hmm(read_length),
+                                  self.config.max_error_rate)
+
+    def rebuild_model_from_vpaths(self, seq_vpaths, read_length: int):
+        """Re-estimate the repeat profile from the MSA of decoded unit paths
+        and rebuild the read-matcher model (finder.py:853; the reference
+        builds it via get_read_matcher_model(..., vpaths),
+        hmm_utils.py:553-555 + profile_hmm.py:13)."""
+        from advntr_tpu_torch.engine import analytics as an
+        from advntr_tpu_torch.models.msa import msa_from_viterbi_paths
+        from advntr_tpu_torch.models.profile import profile_from_alignment
+
+        with host_step():
+            repeats_sequences: list[str] = []
+            repeats_states: list[list[str]] = []
+            for seq, visited in seq_vpaths:
+                reps, vps = an.extract_repeating_segments(seq, visited)
+                repeats_sequences += reps
+                repeats_states += vps
+            if not repeats_sequences:
+                return None
+            alignment = msa_from_viterbi_paths(repeats_sequences,
+                                               repeats_states)
+            trans, emis = profile_from_alignment(self.config.max_error_rate,
+                                                 alignment)
+            g = self._read_matcher(read_length, trans, emis)
+            art = compile_graph(g)
+        return self.cache._build(g, art)
+
+    def update_and_reselect(self, mapped_reads, unmapped_reads,
+                            read_length: int):
+        """One model-update iteration (finder.py:882): decode the selected
+        reads and the reference repeat units, re-estimate, re-select (the
+        reference's loop runs a single iteration: its fitness is computed
+        from the pre-update read set and never changes,
+        vntr_finder.py:692-695)."""
+        lm = self.get_model(read_length)
+        selected, stats = self.select_reads(mapped_reads, unmapped_reads,
+                                            read_length, return_paths=True)
+        with host_step():
+            seq_vpaths = self._decoded(lm, selected, stats)
+        # the reference repeat segments join the update set
+        # (vntr_finder.py:673-677)
+        ref_repeats = [(f"ref{i}", s.upper()) for i, s in
+                       enumerate(self.reference_vntr.get_repeat_segments())]
+        ref_scored, ref_stats = self.score_reads(
+            ref_repeats, [], read_length, return_paths=True)
+        with host_step():
+            seq_vpaths += self._decoded(
+                lm, [r for r in ref_scored if np.isfinite(r.logp)],
+                ref_stats)
+        updated = self.rebuild_model_from_vpaths(seq_vpaths, read_length)
+        if updated is None:
+            return selected
+        new_selected, _ = self.select_reads(mapped_reads, unmapped_reads,
+                                            read_length, model=updated)
+        return new_selected
+
+    def em_update_and_reselect(self, mapped_reads, unmapped_reads,
+                               read_length: int, max_iters: int = 5):
+        """EM-based model update (``--update --em``, finder.py:913):
+        select reads, run batched Baum-Welch over their sequences
+        (ops/baum_welch.py), fold the EM-updated repeat-unit emissions back
+        into the profile (averaged across unit copies), rebuild the model,
+        and re-select.
+
+        Emission-only by design: EM runs on the silent-eliminated
+        first-order model, whose transitions close delete chains away, so
+        only the emission rows map back onto profile states (M{i}/I{i});
+        transitions keep the reference profile estimation."""
+        import re
+        selected, _ = self.select_reads(mapped_reads, unmapped_reads,
+                                        read_length)
+        if not selected:
+            return selected
+        out = self.em_update([r.sequence for r in selected], read_length,
+                             max_iters=max_iters)
+        with host_step():
+            E = np.exp(np.asarray(out["log_E"], dtype=np.float64))
+            # aggregate repeat-region states M{i}_{copy}/I{i}_{copy} (copy
+            # is a bare integer; flank states carry _suffix/_prefix) per
+            # unit position
+            agg: dict[str, list[np.ndarray]] = {}
+            for row, name in zip(E, out["names"]):
+                m = re.fullmatch(r"([MI])(\d+)_(\d+)", name)
+                if m:
+                    agg.setdefault(f"{m.group(1)}{m.group(2)}",
+                                   []).append(row)
+            if not agg:
+                return selected
+            trans, emis = profile_for_repeats(
+                list(self.reference_vntr.get_repeat_segments()),
+                self.config.max_error_rate)
+            for key, rows_ in agg.items():
+                if key in emis:
+                    mean = np.mean(rows_, axis=0)
+                    mean = mean / mean.sum()
+                    emis[key] = {b: float(mean[dna.encode(b)[0]])
+                                 for b in "ACGT"}
+            g = self._read_matcher(read_length, trans, emis)
+            art = compile_graph(g)
+        updated = self.cache._build(g, art)
+        new_selected, _ = self.select_reads(mapped_reads, unmapped_reads,
+                                            read_length, model=updated)
+        return new_selected
 
     @time_usage
     def find_repeat_count(self, mapped_reads, unmapped_reads,
                           read_length: int | None = None,
                           accuracy_filter: bool = False,
-                          average_coverage=None) -> GenotypeResult:
-        """Genotype from candidate reads (vntr_finder.py:789-887); the
-        model-update modes are not ported yet (ROADMAP.md A10)."""
+                          average_coverage=None,
+                          update: bool = False,
+                          em: bool = False) -> GenotypeResult:
+        """Genotype from candidate reads (vntr_finder.py:789-887), after
+        one model update under ``update`` (Baum-Welch under ``em``)."""
         if read_length is None:
             lens = sorted(len(s) for _, s in
                           (mapped_reads + unmapped_reads)[:5])
             read_length = lens[len(lens) // 2] if lens else 150
-        selected, _ = self.select_reads(mapped_reads, unmapped_reads,
-                                        read_length)
+        if update and em:
+            selected = self.em_update_and_reselect(mapped_reads,
+                                                   unmapped_reads,
+                                                   read_length)
+        elif update:
+            selected = self.update_and_reselect(mapped_reads, unmapped_reads,
+                                                read_length)
+        else:
+            selected, _ = self.select_reads(mapped_reads, unmapped_reads,
+                                            read_length)
         return self.genotype_from_selected(selected, accuracy_filter,
                                            average_coverage)
 
@@ -645,6 +810,169 @@ class VNTRFinder:
         return self.genotype_from_counts(covered_repeats, flanking_repeats,
                                          len(selected), accuracy_filter,
                                          average_coverage)
+
+    # -- frameshift mode (reference: vntr_finder.py:256-309) -----------------
+
+    def _sum_closure_tensors(self, read_length: int):
+        """Sum-semiring model tensors for the posterior, split into the
+        full closure and its repeat-delete-routed part, on the device
+        (finder.py:1053; cached per read length).  See ops/posterior.py
+        for the decomposition."""
+        cached = getattr(self, "_sum_cache", {})
+        if read_length in cached:
+            return cached[read_length]
+        from advntr_tpu_torch.ops.posterior import clean_neg, indel_model
+        with host_step():
+            trans, emis = profile_for_repeats(
+                list(self.reference_vntr.get_repeat_segments()),
+                self.config.max_error_rate)
+            host, occ_mask = indel_model(
+                self._read_matcher(read_length, trans, emis))
+        tensors = tuple(clean_neg(x, self.device) for x in host) + (
+            torch.as_tensor(occ_mask, device=self.device),)
+        cached[read_length] = tensors
+        self._sum_cache = cached
+        return tensors
+
+    def _encode_batch(self, sequences: list[str]):
+        """(B, L) codes padded to a multiple of 32, and lengths, on the
+        device."""
+        batch, lengths = dna.pad_batch([dna.encode(s) for s in sequences],
+                                       multiple=32)
+        return (torch.as_tensor(batch, device=self.device),
+                torch.as_tensor(lengths, device=self.device))
+
+    def frameshift_posterior(self, sequences: list[str], read_length: int,
+                             max_reads: int = 128) -> dict:
+        """Posterior indel support over recruited reads (finder.py:1091):
+        expected repeat insert-state emissions and expected
+        repeat-delete-routed transitions per read under the
+        forward-backward posterior."""
+        from advntr_tpu_torch.ops.posterior import posterior_indel_batch
+        tensors = self._sum_closure_tensors(read_length)
+        seqs = sequences[:max_reads]
+        out = posterior_indel_batch(*tensors, *self._encode_batch(seqs))
+        occ = out["ins_occupancy"].cpu().numpy().astype(np.float64)
+        dm = out["del_mass"].cpu().numpy().astype(np.float64)
+        return {
+            "reads": len(seqs),
+            "insert_occupancy": occ,
+            "delete_mass": dm,
+            "mean_insert_occupancy": float(occ.mean()) if len(seqs) else 0.0,
+            "mean_delete_mass": float(dm.mean()) if len(seqs) else 0.0,
+            "indel_support": float(occ.sum() + dm.sum()),
+        }
+
+    def em_update(self, sequences: list[str], read_length: int,
+                  max_iters: int = 5, inertia: float = 0.0,
+                  max_reads: int = 256) -> dict:
+        """Baum-Welch re-estimation over recruited reads (finder.py:1116):
+        EM on the sum-closed model (ops/baum_welch.py).  Returns
+        {"history": total loglik per iteration, "log_T", "log_E",
+        "log_start", "log_end": the updated tables, "names": the emitting
+        states' names}."""
+        from advntr_tpu_torch.models.compiler import compile_graph_sum
+        from advntr_tpu_torch.ops.baum_welch import baum_welch_fit
+        with host_step():
+            trans, emis = profile_for_repeats(
+                list(self.reference_vntr.get_repeat_segments()),
+                self.config.max_error_rate)
+            g = self._read_matcher(read_length, trans, emis)
+            log_T, log_E, log_start, log_end = compile_graph_sum(g)
+            names = [s.name for i, s in enumerate(g.states)
+                     if not s.is_silent and i not in (g.start, g.end)]
+        params, history = baum_welch_fit(
+            log_T, log_E, log_start, log_end,
+            *self._encode_batch(sequences[:max_reads]),
+            max_iters=max_iters, inertia=inertia)
+        return {"history": history, "log_T": params[0], "log_E": params[1],
+                "log_start": params[2], "log_end": params[3],
+                "names": names}
+
+    def find_frameshift(self, mapped_reads, unmapped_reads,
+                        read_length: int | None = None,
+                        posterior: bool | None = None):
+        """The frameshift call of a locus (finder.py:1152): indel states
+        counted per repeat unit on the decoded paths of the selected
+        reads, the binomial LR of ``identify_frameshift``, and by default
+        the posterior indel report (reporting only: a failure of the
+        posterior is logged and the call stands)."""
+        from advntr_tpu_torch.engine import analytics as an
+        if read_length is None:
+            lens = sorted(len(s) for _, s in
+                          (mapped_reads + unmapped_reads)[:5])
+            read_length = lens[len(lens) // 2] if lens else 150
+        lm = self.get_model(read_length)
+        selected, stats = self.select_reads(mapped_reads, unmapped_reads,
+                                            read_length, return_paths=True)
+        if not selected:
+            return None
+        with host_step():
+            mutations: dict[str, int] = {}
+            repeating_bps_in_data = 0
+            pattern_len = len(self.reference_vntr.pattern)
+            for read, (_, visited) in zip(
+                    selected, self._decoded(lm, selected, stats)):
+                lengths_per_unit = an.repeating_pattern_lengths(visited)
+                repeating_bps_in_data += read.repeat_bp
+                current_repeat = None
+                for vs in visited:
+                    if vs.endswith("fix") or vs.startswith("M"):
+                        continue
+                    if vs.startswith("unit_start"):
+                        current_repeat = 0 if current_repeat is None \
+                            else current_repeat + 1
+                    if current_repeat is None or \
+                            current_repeat >= len(lengths_per_unit):
+                        continue
+                    if not vs.startswith("I") and not vs.startswith("D"):
+                        continue
+                    if lengths_per_unit[current_repeat] == pattern_len:
+                        continue
+                    state = vs.split("_")[0]
+                    if state.startswith("I"):
+                        emitted = an.emitted_base_for_state(vs, visited,
+                                                           read.sequence)
+                        state += emitted or ""
+                    if abs(lengths_per_unit[current_repeat]
+                           - pattern_len) <= 2:
+                        mutations[state] = mutations.get(state, 0) + 1
+            sorted_mutations = sorted(mutations.items(), key=lambda x: x[1])
+            candidate = sorted_mutations[-1] if sorted_mutations \
+                else (None, 0)
+            avg_bp_coverage = (repeating_bps_in_data /
+                               self.reference_vntr.get_length() / 2)
+            if avg_bp_coverage == 0:
+                return None
+            expected_indels = 1 / avg_bp_coverage
+            if not identify_frameshift(avg_bp_coverage, candidate[1],
+                                       expected_indels):
+                return None
+        if candidate[0] is None:
+            # the LR fires with no concrete mutation to report (observed 0
+            # at integer coverage): the reference returns None here
+            return None
+        if posterior is None:
+            posterior = self.config.frameshift_posterior
+        post = None
+        if posterior:
+            try:
+                post = self.frameshift_posterior(
+                    [r.sequence for r in selected], read_length)
+                logging.info(
+                    "frameshift posterior %s: candidate %s (LR support %d); "
+                    "mean insert occupancy %.3f, mean delete mass %.3f "
+                    "per read over %d reads",
+                    self.reference_vntr.id, candidate[0], candidate[1],
+                    post["mean_insert_occupancy"],
+                    post["mean_delete_mass"], post["reads"])
+            except Exception as error:  # the reference's reporting-only
+                logging.warning("frameshift posterior failed for %s: %s",
+                                self.reference_vntr.id, error)
+        call = FrameshiftCall(candidate[0])
+        call.lr_support = candidate[1]
+        call.posterior = post
+        return call
 
     # -- PacBio path (reference: vntr_finder.py:324-471, 534-665) ------------
 

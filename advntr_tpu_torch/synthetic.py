@@ -119,6 +119,69 @@ def write_cstb_sample(workdir: str, read_length: int = 100,
     return db, bam
 
 
+FRAMESHIFT_VID, FRAMESHIFT_PATTERN = 25561, "ACGGTCAGT"
+FRAMESHIFT_COPIES, FRAMESHIFT_START = 8, 3000
+
+
+def frameshift_reads(read_length: int, frameshift: bool,
+                     coverage: int = 30, seed: int = 2):
+    """The reads of tests/test_frameshift_end_to_end.py: two haplotypes
+    of 8 copies of ACGGTCAGT between 200-base flanks (seeds 5 and 6), the
+    second with a 1-base deletion in copy 3 when ``frameshift``; 0.1%
+    substitutions.  Returns [(name, sequence, offset in the haplotype)]."""
+    left, right = rand_seq(5, 200), rand_seq(6, 200)
+    p, copies = FRAMESHIFT_PATTERN, FRAMESHIFT_COPIES
+    vntr_b = p * 3 + p[:4] + p[5:] + p * (copies - 4)
+    haps = (left + p * copies + right,
+            left + (vntr_b if frameshift else p * copies) + right)
+    rng = random.Random(seed)
+    reads = []
+    for h, hap in enumerate(haps):
+        for k in range(int(len(hap) * coverage / 2 / read_length)):
+            start = rng.randint(0, len(hap) - read_length)
+            reads.append((f"h{h}r{k}", mutate(
+                hap[start:start + read_length], 0.001, rng), start))
+    return reads
+
+
+def write_frameshift_sample(workdir: str, read_length: int = 100,
+                            frameshift: bool = True):
+    """The frameshift fixture: a one-locus DB (VNTR 25561, one of the
+    CLI's frameshift loci, at chr1:3000) and an indexed BAM of
+    ``frameshift_reads`` at coverage 30, every other read mapped at its
+    simulated position and the rest unmapped.  Returns (db path, bam
+    path)."""
+    db = os.path.join(workdir, "models.db")
+    ref = ReferenceVNTR(FRAMESHIFT_VID, FRAMESHIFT_PATTERN,
+                        FRAMESHIFT_START, "chr1",
+                        estimated_repeats=FRAMESHIFT_COPIES)
+    ref.repeat_segments = [FRAMESHIFT_PATTERN] * FRAMESHIFT_COPIES
+    ref.left_flanking_region = rand_seq(5, 200)
+    ref.right_flanking_region = rand_seq(6, 200)
+    create_vntrs_database(db)
+    save_reference_vntr_to_database(ref, db)
+    mapped, unmapped = [], []
+    for i, (name, seq, offset) in enumerate(
+            frameshift_reads(read_length, frameshift)):
+        if i % 2 == 0:
+            mapped.append(BamRead(
+                query_name=name, flag=0, reference_id=0,
+                reference_start=FRAMESHIFT_START - 200 + offset, mapq=60,
+                cigar=[(0, len(seq))], seq=seq, qual=[38] * len(seq)))
+        else:
+            unmapped.append(BamRead(
+                query_name=name, flag=4, reference_id=-1,
+                reference_start=-1, mapq=0, cigar=[], seq=seq,
+                qual=[38] * len(seq)))
+    mapped.sort(key=lambda r: r.reference_start)
+    bam = os.path.join(workdir, "sample.bam")
+    with BamWriter(bam, ["chr1"], [100000]) as w:
+        for r in mapped + unmapped:
+            w.write(r)
+    build_bai(bam)
+    return db, bam
+
+
 def write_panel(workdir: str, n_loci: int = 16, read_length: int = 150,
                 coverage: int = 30, seed: int = 0):
     """A multi-locus panel: ``n_loci`` loci whose motifs (6 bp and 12 bp)

@@ -114,8 +114,25 @@ times sources whose answers differ by design (the kernel with one part
 left out, to see what that part costs) at the long-read segment, in
 turns, without holding them to anything.
 
-The Illumina path (phase 5) and the long-read path (phase 7) are each
-driven with every launch count set to 0 just before and read just after.
+8. frameshift and model update (the third path): ``genotype -fs`` on
+   the frameshift fixture (``synthetic.write_frameshift_sample``, VNTR
+   25561, read length 100) with and without its 1-base deletion,
+   ``-u`` on the CSTB 2/5 fixture and ``-u --em`` on it at coverage 20,
+   each with --device cuda and --device cpu: the same text, a D call on
+   the deletion and None on the clean sample, 2/5, and the engine's
+   decodes asking B2 for the path; the posterior (B 128) and one
+   Baum-Welch pass (B 256) at the CSTB cell's width (n 927 sum-closed,
+   L 160), plain PyTorch on the card, timed beside their operation bound
+   with peak device memory, their logliks equal to forward_batch (and
+   the backward one) within rtol 1e-5; ``run_device(return_paths=True)``
+   at the CSTB cell against the twins, paths and statistics
+   bit-identical; ``-fs`` at read length 150 (a D call) and the whole
+   ``-u --em`` locus at read length 150 (2/5), with its wall time and
+   launches.
+
+The Illumina path (phase 5), the long-read path (phase 7) and the
+frameshift and update path (phase 8) are each driven with every launch
+count set to 0 just before and read just after.
 The last three lines are the nvidia-smi line, one JSON object of the
 kernels, and {"ok": true, "device": {...}}.
 """
@@ -1398,6 +1415,266 @@ def phase_pacbio_cli(kernels):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def sweep_bound_ms(sweeps: int, B: int, n: int, L: int,
+                   matmuls: int = 0) -> float:
+    """The least time for ``sweeps`` log-sum-exp sweeps over (B, n, n) a
+    column for L-1 columns: five float32 operations a term (add, max,
+    subtract, exp, sum), plus ``matmuls`` (B, n) x (n, n)-sized products
+    a column at two operations a term, over 67 TFLOP/s.  The bytes (the
+    tables and reads in, O(B + n^2) out) are under 0.01 ms."""
+    terms = B * n * n * (L - 1)
+    return (5 * sweeps + 2 * matmuls) * terms / 67e12 * 1e3
+
+
+def phase_posterior_full_width(dev):
+    """The posterior and one Baum-Welch pass at the CSTB cell's width
+    (n 927 in the sum-closed form, reads of 150 bp padded to 160): ms
+    (CUDA events, median of 3), peak MiB, logliks cross-checked."""
+    from advntr_tpu_torch.ops.baum_welch import baum_welch_stats
+    from advntr_tpu_torch.ops.posterior import (clean_neg, indel_model,
+                                                posterior_indel_batch)
+    from advntr_tpu_torch.ops.viterbi import forward_batch
+    from advntr_tpu_torch.synthetic import (build_cstb_locus, encode_reads,
+                                            simulate_cstb_reads)
+    graph, _, left, right, pattern = build_cstb_locus(READ_LEN)
+    host, occ = indel_model(graph)
+    tables = [clean_neg(x, dev) for x in host]
+    occ = torch.as_tensor(occ, device=dev)
+    n = tables[0].shape[0]
+    check(n == 927, f"sum-closed CSTB model has {n} states, not 927")
+    batch, lengths = encode_reads(
+        simulate_cstb_reads(left, pattern, right, READ_LEN, 256, seed=9),
+        READ_LEN)
+    out = {}
+    for name, B in (("posterior", 128), ("baum_welch", 256)):
+        seqs = torch.as_tensor(batch[:B], device=dev)
+        lens = torch.as_tensor(lengths[:B], device=dev)
+        L = seqs.shape[1]
+        if name == "posterior":
+            fn = lambda: posterior_indel_batch(*tables, occ, seqs, lens)
+            bound = sweep_bound_ms(3, B, n, L)
+        else:
+            fn = lambda: baum_welch_stats(*tables[:4], seqs, lens)
+            bound = sweep_bound_ms(2, B, n, L, matmuls=1)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        res = fn()
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+        ms = time_ms(fn, iters=3, warmup=0)
+        fwd = forward_batch(*tables[:4], seqs, lens)
+        ll = res["loglik"]
+        check(bool(torch.isfinite(ll).all()), f"{name}: loglik not finite")
+        check(torch.allclose(ll, fwd, rtol=1e-5, atol=0),
+              f"{name}: loglik differs from forward_batch by "
+              f"{float((ll - fwd).abs().max())}")
+        if name == "posterior":
+            check(torch.allclose(ll, res["loglik_backward"], rtol=1e-5,
+                                 atol=0),
+                  "posterior: loglik differs from loglik_backward by "
+                  f"{float((ll - res['loglik_backward']).abs().max())}")
+            check(all(bool(torch.isfinite(res[k]).all()) and
+                      res[k].shape == (B,)
+                      for k in ("ins_occupancy", "del_mass")),
+                  "posterior: occupancy or delete mass not finite")
+        else:
+            check(all(bool(torch.isfinite(res[k]).all())
+                      for k in ("xi", "emit", "gamma_start", "gamma_end")),
+                  "baum_welch: counts not finite")
+            check(abs(float(res["gamma_start"].sum()) - B) < 1e-2 * B,
+                  "baum_welch: start counts do not sum to the reads")
+        rel = cpu_slice_rel_err(name, tables, occ, seqs, lens, res)
+        out[name] = {"B": B, "n": n, "L": L, "ms": ms, "peak_mib": peak,
+                     "bound_ms": bound, "bound_by": "operations",
+                     "loglik_vs_forward_max_abs": float(
+                         (ll - fwd).abs().max()),
+                     "vs_cpu_max_rel_err": rel}
+        log(f"{name} at full width (B {B}, n {n}, L {L}): {ms:.3f} ms "
+            f"(median of 3), peak {peak:.1f} MiB; bound {bound:.4f} ms "
+            f"(operations), reached {bound / ms:.5f}; loglik equal to "
+            f"forward_batch within rtol 1e-5 (max abs "
+            f"{out[name]['loglik_vs_forward_max_abs']:.3g}); first "
+            f"{CPU_SLICE} reads equal to the CPU within rtol 1e-4 ("
+            + ", ".join(f"{k} {v:.3g}" for k, v in rel.items()) + ")")
+    return out
+
+
+# reads of the full-width batch that the CPU computes again
+CPU_SLICE = 8
+
+
+def cpu_slice_rel_err(name, tables, occ, seqs, lens, res) -> dict:
+    """The card's posterior or Baum-Welch outputs on the first CPU_SLICE
+    reads against the same function on the CPU, each within rtol 1e-4
+    with an absolute floor of 1e-4 of the output's largest entry: a TF32
+    product (10-bit mantissa) would miss it.  The posterior's outputs are
+    per read, so the full-width run's rows are held; Baum-Welch sums over
+    reads, so the card runs the slice again.  Returns the largest
+    relative error of each output."""
+    from advntr_tpu_torch.ops.baum_welch import baum_welch_stats
+    from advntr_tpu_torch.ops.posterior import posterior_indel_batch
+    k = CPU_SLICE
+    host = [t.cpu() for t in tables]
+    s, n_ = seqs[:k].cpu(), lens[:k].cpu()
+    if name == "posterior":
+        card = {key: res[key][:k] for key in
+                ("loglik", "ins_occupancy", "del_mass")}
+        want = posterior_indel_batch(*host, occ.cpu(), s, n_)
+    else:
+        card = baum_welch_stats(*tables[:4], seqs[:k], lens[:k])
+        want = baum_welch_stats(*host[:4], s, n_)
+        card = {key: card[key] for key in
+                ("loglik", "xi", "emit", "gamma_start", "gamma_end")}
+    rel = {}
+    for key, got in card.items():
+        got, ref = got.cpu(), want[key]
+        floor = 1e-4 * float(ref.abs().max())
+        rel[key] = float(((got - ref).abs()
+                          / ref.abs().clamp(min=floor)).max())
+        check(torch.allclose(got, ref, rtol=1e-4, atol=floor),
+              f"{name}: {key} on the card differs from the CPU by up to "
+              f"{rel[key]:.3g} relative (first {k} reads)")
+    return rel
+
+
+def phase_engine_paths(dev, kernels):
+    """B2's path through the engine: ``run_device(..., return_paths=True)``
+    at the CSTB cell against the twins on the same inputs."""
+    from advntr_tpu_torch.engine.finder import LocusModelCache, VNTRFinder
+    from advntr_tpu_torch.ops import viterbi_fused as vf
+    from advntr_tpu_torch.synthetic import (build_cstb_locus, encode_reads,
+                                            simulate_cstb_reads)
+    graph, art, left, right, pattern = build_cstb_locus(READ_LEN)
+    lm = LocusModelCache(device=dev)._build(graph, art)
+    batch, lengths = encode_reads(
+        simulate_cstb_reads(left, pattern, right, READ_LEN, N_READS, seed=9),
+        READ_LEN)
+
+    class Engine:
+        device = dev
+        run_device = VNTRFinder.run_device
+
+    got = Engine().run_device(lm, batch, lengths, return_paths=True)
+    want = vf.viterbi_stats_reference(
+        lm.model, torch.as_tensor(batch, device=dev),
+        torch.as_tensor(lengths, device=dev), return_path=True)
+    for k in vf.STAT_KEYS + ("path",):
+        check(np.array_equal(got[k], want[k].cpu().numpy()),
+              f"run_device(return_paths=True): {k} differs from the twins")
+    err = float(np.abs(got["logp"] - want["logp"].cpu().numpy()).max())
+    check(np.allclose(got["logp"], want["logp"].cpu().numpy(), **LOGP_TOL),
+          "run_device(return_paths=True): logp vs the twins")
+    log(f"engine paths: run_device(return_paths=True) at the CSTB cell "
+        f"(B {N_READS}, L {batch.shape[1]}): paths and statistics "
+        f"bit-identical to the twins, max |logp diff| {err}")
+
+
+def phase_update_frameshift(dev, kernels):
+    """``genotype -fs``, ``-u`` and ``-u --em`` on the card (the third
+    path): the texts equal to ``--device cpu`` on the small fixtures, the
+    calls checked, the engine's decodes asking B2 for the path; then the
+    full-width posterior and Baum-Welch, B2's engine paths against the
+    twins, ``-fs`` at read length 150 and the whole ``-u --em`` locus at
+    150."""
+    from advntr_tpu_torch.engine import device_analytics as da
+    from advntr_tpu_torch.synthetic import (write_cstb_sample,
+                                            write_frameshift_sample)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_a10_")
+    path_calls = []
+    orig = da.read_stats
+
+    def counted(model, seqs, lengths, return_path=False, **kw):
+        if return_path and seqs.is_cuda:
+            path_calls.append(tuple(seqs.shape))
+        return orig(model, seqs, lengths, return_path, **kw)
+
+    def fixture(name, writer, *args, **kw):
+        wd = os.path.join(tmp, name)
+        os.makedirs(wd)
+        return writer(wd, *args, **kw)
+
+    def argv(db, bam, name, device, extra):
+        wd = os.path.join(tmp, "run_" + name + "_" + device)
+        os.makedirs(wd, exist_ok=True)
+        return (["genotype", "-a", bam, "-m", db, "--working_directory", wd,
+                 "--disable_logging", "-o", os.path.join(wd, "out.txt"),
+                 "--device", device] + extra)
+
+    da.read_stats = counted
+    try:
+        small = {
+            "fs_deletion": (fixture("fsd", write_frameshift_sample, 100,
+                                    True), ["-fs"]),
+            "fs_clean": (fixture("fsc", write_frameshift_sample, 100,
+                                 False), ["-fs"]),
+            "u": (fixture("cstb", write_cstb_sample), ["-u"]),
+            "u_em": (fixture("cstb20", write_cstb_sample, coverage=20),
+                     ["-u", "--em"]),
+        }
+        # this path: every kernel count starts at 0 here
+        kernels.reset_launches()
+        gpu = {name: run_cli(argv(*files, name, "cuda", extra))
+               for name, (files, extra) in small.items()}
+        launches = dict(kernels.LAUNCHES)
+        n_path = len(path_calls)
+        log(f"-fs/-u/--em (cuda): launches {launches}; decodes that asked "
+            f"B2 for the path {n_path} (batch shapes "
+            f"{sorted(set(path_calls))})")
+        for k in ILLUMINA_KERNELS:
+            check(launches[k] > 0,
+                  f"kernel {k} never launched on the -fs/-u path")
+        check(n_path >= 3, "the -fs/-u runs asked B2 for the path "
+                           f"{n_path} times")
+        text = {k: v[0].split() for k, v in gpu.items()}
+        check(text["fs_deletion"][:1] == ["25561"]
+              and text["fs_deletion"][1].startswith("D"),
+              f"-fs on the deletion sample: {text['fs_deletion']}")
+        check(text["fs_clean"] == ["25561", "None"],
+              f"-fs on the clean sample: {text['fs_clean']}")
+        for k in ("u", "u_em"):
+            check(text[k] == ["301645", "2/5"], f"{k}: {text[k]}")
+        cpu_s = {}
+        for name, (files, extra) in small.items():
+            cpu_text, cpu_s[name] = run_cli(argv(*files, name, "cpu", extra))
+            check(cpu_text == gpu[name][0],
+                  f"{name}: --device cuda gives {text[name]}, --device cpu "
+                  f"{cpu_text.split()}")
+        log("-fs/-u/--em: cuda == cpu text on the small fixtures ("
+            + "; ".join(f"{k} {' '.join(text[k])}: cuda {gpu[k][1]:.2f} s, "
+                        f"cpu {cpu_s[k]:.2f} s" for k in small) + ")")
+
+        out = {"launches": launches, "path_decodes": n_path,
+               "small_cuda_s": {k: v[1] for k, v in gpu.items()},
+               "small_cpu_s": cpu_s}
+        out.update(phase_posterior_full_width(dev))
+        phase_engine_paths(dev, kernels)
+
+        fs150 = fixture("fs150", write_frameshift_sample, 150, True)
+        fs_text, fs_s = run_cli(argv(*fs150, "fs150", "cuda", ["-fs"]))
+        check(fs_text.split()[0] == "25561"
+              and fs_text.split()[1].startswith("D"),
+              f"-fs at read length 150: {fs_text.split()}")
+        cstb150 = fixture("cstb150", write_cstb_sample, 150)
+        kernels.reset_launches()
+        reset_stages()
+        em_text, em_s = run_cli(argv(*cstb150, "em150", "cuda",
+                                     ["-u", "--em"]))
+        em_launches = dict(kernels.LAUNCHES)
+        check(em_text.split() == ["301645", "2/5"],
+              f"-u --em at read length 150: {em_text.split()}")
+        log(f"-fs at read length 150 (cuda): {' '.join(fs_text.split())} in "
+            f"{fs_s:.2f} s; -u --em locus at read length 150 (cuda): "
+            f"{' '.join(em_text.split())} in {em_s:.2f} s, launches "
+            f"{em_launches}; stages: {stage_totals()}")
+        out.update({"fs150_s": fs_s, "em150_s": em_s,
+                    "em150_launches": em_launches})
+        return out
+    finally:
+        da.read_stats = orig
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def run_cli(argv) -> tuple[str, float]:
     from advntr_tpu_torch import cli
     t0 = time.perf_counter()
@@ -1563,6 +1840,7 @@ def main() -> None:
     del long_["segment"]
     align_ = phase_local_align(dev, _kernels, align_sources)
     pacbio_launches = phase_pacbio_cli(_kernels)
+    a10 = phase_update_frameshift(dev, _kernels)
     tail = None
     if long_tail:
         tail = phase_long_reads(dev, _kernels, None, TAIL_L, TAIL_B,
@@ -1579,6 +1857,7 @@ def main() -> None:
          "bound_ms": ms["bound"]["B1"][0],
          "bound_by": ms["bound"]["B1"][1], "library_ms": None,
          "warm_panel_launches": warm_launches["forward"],
+         "update_frameshift_launches": a10["launches"]["forward"],
          "group_ms": ms["group"]["B1"],
          "group_bound_ms": ms["group"]["B1_bound"]},
         {"name": "viterbi_backward", "route": "cuda",
@@ -1589,6 +1868,8 @@ def main() -> None:
          "bound_ms": ms["bound"]["B2"][0],
          "bound_by": ms["bound"]["B2"][1], "library_ms": None,
          "warm_panel_launches": warm_launches["backward"],
+         "update_frameshift_launches": a10["launches"]["backward"],
+         "update_frameshift_path_decodes": a10["path_decodes"],
          "wrapper_ms": ms["B2"][0], "path_ms": walk["cell"]["ms_path"],
          "chain_floor_ms": walk["cell"]["floor_ms"],
          "windows_per_read": walk["cell"]["windows_mean"],
@@ -1657,6 +1938,10 @@ def main() -> None:
     ]
     if tail is not None:
         kernels[2]["tail"] = tail
+    log("posterior and Baum-Welch (plain PyTorch, no kernel of their own): "
+        + json.dumps({k: a10[k] for k in ("posterior", "baum_welch",
+                                          "fs150_s", "em150_s",
+                                          "em150_launches")}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

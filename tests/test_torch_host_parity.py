@@ -63,6 +63,7 @@ INTENDED = {
     "io/bgzf.py": None, "io/bam.py": None, "io/sam.py": None,
     "io/fasta.py": None, "io/cram.py": None,
     "engine/genotype.py": None, "engine/coverage_bias.py": None,
+    "engine/analytics.py": None,
     "engine/simulate.py": None, "engine/haplotyper.py": None,
 }
 IMPORT_LINE = re.compile(r"^(\s*(?:from|import)\s+)advntr_tpu_torch(?=[\s.])",
@@ -89,26 +90,42 @@ def test_copy_text_equals_original(module):
 
 
 def test_seam_functions_equal_their_originals():
-    """The two seams of reference_vntr.py (the numpy Viterbi and the
-    segment splitter) and the numpy local alignment of ops/align.py are
-    verbatim parts of modules the port does not copy whole."""
+    """The numpy Viterbi of reference_vntr.py's repeat finder, the numpy
+    local alignment of ops/align.py, and the host numpy parts of the
+    posterior and Baum-Welch modules (``log_sub``, the M-step) are
+    verbatim parts of modules the port does not copy whole; so is the
+    NEG32 floor."""
     import inspect
 
-    from advntr_tpu.engine import analytics as janalytics
-    from advntr_tpu.ops import viterbi as jviterbi
-    from advntr_tpu_torch.engine import analytics
-    from advntr_tpu_torch.ops import viterbi
     from advntr_tpu.ops import align as jalign
-    from advntr_tpu_torch.ops import align
+    from advntr_tpu.ops import baum_welch as jbw
+    from advntr_tpu.ops import posterior as jposterior
+    from advntr_tpu.ops import viterbi as jviterbi
+    from advntr_tpu_torch.ops import align, baum_welch, posterior, viterbi
     pairs = [(viterbi.viterbi_numpy, jviterbi.viterbi_numpy),
              (align.local_align, jalign.local_align),
-             (analytics.is_emitting_state, janalytics.is_emitting_state),
-             (analytics.repeating_pattern_lengths,
-              janalytics.repeating_pattern_lengths),
-             (analytics.repeat_segments_from_region,
-              janalytics.repeat_segments_from_region)]
+             (posterior.log_sub, jposterior.log_sub),
+             (baum_welch.baum_welch_update, jbw.baum_welch_update)]
     for own, ref in pairs:
         assert inspect.getsource(own) == inspect.getsource(ref), own.__name__
+    assert viterbi.NEG32 == jviterbi.NEG32
+    assert viterbi.NEG32.dtype == jviterbi.NEG32.dtype
+
+
+def test_clean_neg_equals_original():
+    """``clean_neg`` is the original's numpy with the upload to a torch
+    device in place of jnp.asarray: equal float32 tables."""
+    import torch
+
+    from advntr_tpu.ops import posterior as jposterior
+    from advntr_tpu_torch.ops import posterior
+    rng = np.random.default_rng(13)
+    x = rng.normal(size=(7, 9)) * 50
+    x[rng.random((7, 9)) < 0.3] = -np.inf
+    got = posterior.clean_neg(x, torch.device("cpu"))
+    assert got.dtype == torch.float32 and got.device.type == "cpu"
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(jposterior.clean_neg(x)))
 
 
 def test_version_equals_reference():

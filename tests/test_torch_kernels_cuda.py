@@ -648,3 +648,73 @@ def test_wide_entry_with_units_in_device_memory_matches_twin(cuda, P, C):
     assert _kernels.LAUNCHES["forward_wide"] == n0 + 2
     best, bstate = vf.forward_state_best(m, twin)
     assert torch.equal(out[0][0], best) and torch.equal(out[1][0], bstate)
+
+
+def test_run_device_paths_equal_twin_at_cstb_cell(cuda):
+    """The engine's own call with the path asked for (``-fs`` and ``-u``
+    decode through it): one B1 and one B2 launch at the CSTB cell (the
+    engine's padding, P 512; 4,096 reads of 150 bp, L 160), paths and
+    statistics bit-identical to the plain twins on the card."""
+    from advntr_tpu_torch.engine.finder import LocusModelCache, VNTRFinder
+    from advntr_tpu_torch.synthetic import (build_cstb_locus, encode_reads,
+                                            simulate_cstb_reads)
+    graph, art, left, right, pattern = build_cstb_locus(150)
+    lm = LocusModelCache(device=cuda)._build(graph, art)
+    assert (lm.art.n_states, lm.model.P) == (927, 512)
+    batch, lengths = encode_reads(
+        simulate_cstb_reads(left, pattern, right, 150, 4096, seed=9), 150)
+
+    class _Finder:
+        device = cuda
+        run_device = VNTRFinder.run_device
+
+    n0 = dict(_kernels.LAUNCHES)
+    got = _Finder().run_device(lm, batch, lengths, return_paths=True)
+    assert _kernels.LAUNCHES["forward"] == n0["forward"] + 1
+    assert _kernels.LAUNCHES["backward"] == n0["backward"] + 1
+    want = vf.viterbi_stats_reference(
+        lm.model, torch.as_tensor(batch, device=cuda),
+        torch.as_tensor(lengths, device=cuda), return_path=True)
+    assert got["path"].shape == batch.shape
+    for k in vf.STAT_KEYS + ("path",):
+        np.testing.assert_array_equal(got[k], want[k].cpu().numpy(),
+                                      err_msg=k)
+    np.testing.assert_allclose(got["logp"], want["logp"].cpu().numpy(),
+                               rtol=1e-4, atol=1e-2)
+
+
+def _sum_model():
+    """A small model's posterior tables and insert mask, and 24 seeded
+    reads."""
+    from advntr_tpu_torch.models.graph import build_read_matcher
+    from advntr_tpu_torch.models.profile import profile_for_repeats
+    from advntr_tpu_torch.ops.posterior import indel_model
+    units, left, right, copies = CASES[1]
+    trans, emis = profile_for_repeats(units, 0.05)
+    host, occ = indel_model(
+        build_read_matcher(left, right, trans, emis, copies, 0.05))
+    return host, occ, _batch(CASES[1], 24, seed=21)
+
+
+def test_posterior_and_baum_welch_on_card_equal_cpu(cuda):
+    """ops/posterior.py and ops/baum_welch.py are plain PyTorch: on the
+    card they agree with the same functions on the CPU within rtol 1e-4
+    (float32 sums in another order; the products in full float32)."""
+    from advntr_tpu_torch.ops.baum_welch import baum_welch_stats
+    from advntr_tpu_torch.ops.posterior import (clean_neg,
+                                                posterior_indel_batch)
+    host, occ, (seqs, lengths) = _sum_model()
+    cpu = torch.device("cpu")
+    for name, fn, n_tables in (("posterior", posterior_indel_batch, 7),
+                               ("baum_welch", baum_welch_stats, 4)):
+        outs = []
+        for dev in (cpu, cuda):
+            args = [clean_neg(x, dev) for x in host[:n_tables]]
+            if name == "posterior":
+                args.append(torch.as_tensor(occ, device=dev))
+            outs.append(fn(*args, seqs.to(dev), lengths.to(dev)))
+        for k, v in outs[0].items():
+            assert outs[1][k].device.type == "cuda", (name, k)
+            np.testing.assert_allclose(outs[1][k].cpu().numpy(), v.numpy(),
+                                       rtol=1e-4, atol=1e-5,
+                                       err_msg=f"{name} {k}")
