@@ -2,10 +2,13 @@
 Illumina alignments (BAM/SAM/CRAM), with ``-fs`` (frameshift calls of the
 loci in ``FRAMESHIFT_VNTRS``) and ``-u``/``--em`` (one model update a
 locus, by decoded paths or by Baum-Welch), and, with ``-p``, for PacBio
-reads from an alignment or a FASTA/FASTQ file; and ``viewmodel``.
+reads from an alignment or a FASTA/FASTQ file; and the model database's
+``viewmodel``, ``addmodel`` (a custom locus, its recruitment threshold
+trained on the device), ``delmodel`` and ``buildbank`` (the locus model
+bank compiled offline, on the host).
 
-The ``genotype`` and ``viewmodel`` flags are the reference's
-(advntr_tpu/cli.py:23-116) plus an explicit ``--device``.
+The flags are the reference's (advntr_tpu/cli.py:23-114), with an
+explicit ``--device`` on ``genotype`` and ``addmodel``.
 """
 
 from __future__ import annotations
@@ -88,6 +91,41 @@ def build_parser() -> argparse.ArgumentParser:
     v.add_argument("-g", "--gene", type=str, default="")
     v.add_argument("-p", "--pattern", type=str, default=None)
     v.add_argument("-m", "--models", type=str, default=None)
+
+    a = sub.add_parser("addmodel", help="add custom VNTR to the database")
+    a.add_argument("-r", "--reference", type=str, default=None,
+                   help="reference genome FASTA")
+    a.add_argument("-c", "--chromosome", type=str, default=None)
+    a.add_argument("-p", "--pattern", type=str, default=None)
+    a.add_argument("-s", "--start", type=int, default=None)
+    a.add_argument("-e", "--end", type=int, default=None)
+    a.add_argument("-g", "--gene", type=str, default=None)
+    a.add_argument("-a", "--annotation", type=str, default=None)
+    a.add_argument("-m", "--models", type=str, default=None)
+    a.add_argument("--device", choices=DEVICES, default="cuda",
+                   help="where the training reads are scored: cuda "
+                        "(default; fails without a GPU) or cpu")
+
+    d = sub.add_parser("delmodel", help="remove a model from database")
+    d.add_argument("-vid", "--vntr_id", type=str, default=None)
+    d.add_argument("-m", "--models", type=str, default=None)
+
+    b = sub.add_parser(
+        "buildbank",
+        help="precompile the locus model bank offline (host work only) so "
+             "genotyping runs start warm")
+    b.add_argument("-m", "--models", type=str, metavar="<file>", default=None)
+    b.add_argument("--working_directory", type=str, metavar="<path>",
+                   required=True,
+                   help="bank is written to <working_directory>/model_bank")
+    b.add_argument("-l", "--read_length", type=int, metavar="<int>",
+                   default=150)
+    b.add_argument("-p", "--pacbio", action="store_true")
+    b.add_argument("-n", "--nanopore", action="store_true")
+    b.add_argument("-t", "--threads", type=int, metavar="<int>", default=0,
+                   help="worker processes (default: all cores)")
+    b.add_argument("-vid", "--vntr_id", type=str, metavar="<text>",
+                   default=None, help="comma-separated list of VNTR IDs")
     return parser
 
 
@@ -181,6 +219,89 @@ def view_model(args) -> None:
                                             ref.start_point, ref.pattern))
 
 
+def add_model(args) -> None:
+    from advntr_tpu_torch.engine.training import train_and_add_model
+    for field in ("reference", "chromosome", "pattern", "start", "end"):
+        if getattr(args, field) is None:
+            _err("--%s is required" % field)
+    device = resolve_device(args.device)
+    vid = train_and_add_model(
+        reference_file=args.reference, chromosome=args.chromosome,
+        pattern=args.pattern, start=args.start, end=args.end,
+        gene=args.gene, annotation=args.annotation,
+        db_file=args.models or DEFAULT_ILLUMINA_DB, device=device)
+    print("Training completed. VNTR saved with ID: %s to the database" % vid)
+
+
+def del_model(args) -> None:
+    from advntr_tpu_torch.models.db import delete_vntr_from_database
+    if not args.vntr_id:
+        _err("--vntr_id is required")
+    delete_vntr_from_database(int(args.vntr_id),
+                              args.models or DEFAULT_ILLUMINA_DB)
+
+
+def build_bank(args) -> None:
+    """Offline model-bank construction (cli.py:231-287): every locus's
+    host model build runs once here, in a pool of worker processes, and
+    later genotype runs with the same --working_directory start warm.
+    The pool spawns its workers: a forked child of a process that holds a
+    CUDA context (a smoke run that calls this in-process) is undefined."""
+    import concurrent.futures
+    import math
+    import multiprocessing
+    import time
+
+    from advntr_tpu_torch.engine.finder import (bank_payload_path,
+                                                build_and_save_payload)
+    from advntr_tpu_torch.models.db import load_unique_vntrs_data
+
+    config = Config().with_platform(args.pacbio, args.nanopore)
+    models_file = args.models
+    if models_file is None:
+        models_file = DEFAULT_PACBIO_DB if args.pacbio else DEFAULT_ILLUMINA_DB
+    bank_dir = os.path.join(args.working_directory, "model_bank")
+    os.makedirs(bank_dir, exist_ok=True)
+    reference_vntrs = load_unique_vntrs_data(models_file)
+    if args.vntr_id is not None:
+        targets = {int(v) for v in args.vntr_id.split(",")}
+        reference_vntrs = [r for r in reference_vntrs if r.id in targets]
+    read_length = args.read_length
+    jobs = []
+    for ref in reference_vntrs:
+        # the (copies, flank, error) key of the analyzer's get_model
+        copies = int(round(read_length / len(ref.pattern) + 0.5))
+        path = bank_payload_path(bank_dir, ref.id, copies, read_length,
+                                 config.max_error_rate)
+        if not os.path.exists(path):
+            jobs.append((ref, copies, read_length, config.max_error_rate,
+                         path))
+    workers = args.threads if args.threads and args.threads > 0 \
+        else (os.cpu_count() or 2)
+    print("buildbank: %d loci to compile (%d already banked), %d workers"
+          % (len(jobs), len(reference_vntrs) - len(jobs), workers))
+    t0 = time.perf_counter()
+    done = 0
+    if jobs:
+        with concurrent.futures.ProcessPoolExecutor(
+                workers, mp_context=multiprocessing.get_context("spawn")) \
+                as pool:
+            futs = [pool.submit(build_and_save_payload, *job)
+                    for job in jobs]
+            tick = max(1, math.ceil(len(futs) / 20))
+            for fut in concurrent.futures.as_completed(futs):
+                fut.result()
+                done += 1
+                if done % tick == 0 or done == len(futs):
+                    dt = time.perf_counter() - t0
+                    print("  %d/%d built (%.1fs, %.0f loci/min)"
+                          % (done, len(futs), dt, done / dt * 60),
+                          flush=True)
+    dt = time.perf_counter() - t0
+    print("buildbank: %d loci compiled in %.1fs -> %s"
+          % (done, dt, bank_dir))
+
+
 def main(argv=None) -> None:
     parser = build_parser()
     args = parser.parse_args(argv)
@@ -188,6 +309,12 @@ def main(argv=None) -> None:
         genotype(args)
     elif args.command == "viewmodel":
         view_model(args)
+    elif args.command == "addmodel":
+        add_model(args)
+    elif args.command == "delmodel":
+        del_model(args)
+    elif args.command == "buildbank":
+        build_bank(args)
     else:
         parser.error("Please specify a valid command")
 

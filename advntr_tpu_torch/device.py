@@ -4,6 +4,8 @@ path runs the kernels' plain PyTorch twins and only when asked for."""
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 DEVICES = ("cuda", "cpu")
@@ -18,3 +20,15 @@ def resolve_device(name: str | torch.device = "cuda") -> torch.device:
                            "device; pass --device cpu to run the plain "
                            "PyTorch path")
     return dev
+
+
+@contextlib.contextmanager
+def full_float32_matmul():
+    """Float32 products in full float32 inside the block, whatever the
+    process-wide TF32 switch says; the switch is put back on exit."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved

@@ -416,9 +416,12 @@ class GenomeAnalyzer:
                                group_size: int = 8, ckpt_path=None):
         """Per-locus prep on the host, then same-shape loci scored as
         groups of ``group_size`` on the device (analyzer.py:455-558).
-        Under ``update`` each locus re-estimates its own model, so each
-        takes the sequential ``find_repeat_count`` (analyzer.py:475-483);
-        an error of its host work gives its Error row."""
+        Under ``update`` each locus re-estimates its own model, and a
+        locus whose model is dense (an imported topology the structured
+        extractor refuses) has no group to join, so each of these takes
+        the sequential ``find_repeat_count`` (analyzer.py:475-493).  An
+        error of a locus's host work (``HostStepError``) gives its Error
+        row; a device error propagates."""
         error_result = (GenotypeResult(None, 0, 0, 0, 0), True)
         results: dict = {}
         prepped = {}
@@ -426,24 +429,23 @@ class GenomeAnalyzer:
         for vid in vids:
             finder = self.vntr_finder[vid]
             try:
-                mapped = self.mapped_candidates(bam, finder, read_length)
+                with host_step():
+                    mapped = self.mapped_candidates(bam, finder, read_length)
                 if not update:
                     lm = finder.get_model(read_length)
                     reads, rows, row_info = finder.prepare_rows(
                         mapped, unmapped_by_vid[vid])
-            except NotImplementedError:
-                raise
-            except Exception as error:
+            except HostStepError as error:
                 logging.error("Error preparing VNTR %s: %s.", vid, error)
                 results[vid] = error_result
                 continue
-            if update:
+            if update or (rows and lm.dense is not None):
                 try:
                     results[vid] = (finder.find_repeat_count(
                         mapped, unmapped_by_vid[vid],
                         read_length=read_length,
                         accuracy_filter=accuracy_filter,
-                        average_coverage=average_coverage, update=True,
+                        average_coverage=average_coverage, update=update,
                         em=em), False)
                 except HostStepError as error:
                     logging.error("Error genotyping VNTR %s: %s.", vid,

@@ -6,10 +6,16 @@ returns only O(B) scalars; ``read_stats_grouped`` scores G same-shape
 loci with one launch of each kernel.  ``read_stats_ckpt`` is the memory-safe
 path for long lattices: the checkpointed traceback, then
 ``analytics_from_path``, the plain path-walking analytics that the
-backward walk's in-kernel statistics are held against.
+backward walk's in-kernel statistics are held against.  ``DenseModel`` and
+``read_stats_dense`` are the dense fallback for an imported model whose
+topology the structured extractor refuses: Viterbi over the (n, n)
+eliminated table in plain PyTorch (the reference's is XLA, not Pallas),
+then the same path analytics.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -17,6 +23,7 @@ import torch
 from advntr_tpu_torch.models.graph import (K_MATCH, R_PREFIX, R_REPEAT,
                                            R_SUFFIX)
 from advntr_tpu_torch.ops import viterbi_ckpt
+from advntr_tpu_torch.ops.viterbi import prepare_model_tensors, viterbi_batch
 from advntr_tpu_torch.ops import viterbi_fused as vf
 from advntr_tpu_torch.ops.struct_model import TorchStructModel
 from advntr_tpu_torch.ops.viterbi_fused import MIN_BP_IN_REPEAT
@@ -51,6 +58,64 @@ def read_stats_ckpt(model, seqs, lengths, return_path: bool = False,
         origin32=origin32)
     return analytics_from_path(model.art_meta, logp, path, seqs, lengths,
                                return_path=return_path)
+
+
+# the dense fallback forms one (rows, n, n) float32 temporary a column;
+# rows are scored in chunks that keep it under this many bytes
+# (the whole batch at once would be 4 B n^2: 1.8 GB at B 512, n 927)
+DENSE_CHUNK_BYTES = 1 << 29
+
+
+@dataclasses.dataclass
+class DenseModel:
+    """The dense tables of a compiled artifact on a device
+    (device_analytics.py:27-55): the eliminated transitions (n, n), the
+    emissions (n, 4), start and end (n,), -inf cleaned to NEG32, and the
+    (kind, region, exp_base, unit) vectors the analytics read."""
+    log_T: torch.Tensor
+    log_E: torch.Tensor
+    log_start: torch.Tensor
+    log_end: torch.Tensor
+    kind: torch.Tensor
+    region: torch.Tensor
+    exp_base: torch.Tensor
+    unit: torch.Tensor
+
+    @classmethod
+    def from_artifact(cls, art, device) -> "DenseModel":
+        tables = prepare_model_tensors(art, device)
+        meta = (torch.as_tensor(np.asarray(x, dtype=np.int64), device=device)
+                for x in (art.kind, art.region, art.exp_base, art.unit))
+        return cls(*tables, *meta)
+
+    @property
+    def meta(self):
+        return (self.kind, self.region, self.exp_base, self.unit)
+
+    @property
+    def n_states(self) -> int:
+        return self.log_T.shape[0]
+
+
+def read_stats_dense(model: DenseModel, seqs, lengths,
+                     return_path: bool = False,
+                     chunk_bytes: int = DENSE_CHUNK_BYTES) -> dict:
+    """Dense Viterbi + analytics for one locus (device_analytics.py:57-74):
+    ``viterbi_batch`` (the reference's tie rule: the first maximum wins
+    the traceback's argmax) and ``analytics_from_path``, on the model's
+    device, the rows taken in chunks of at most
+    ``chunk_bytes // (4 n^2)``.  Each read's values are its own, so the
+    chunking changes none of them."""
+    n = model.n_states
+    rows = max(1, chunk_bytes // (4 * n * n))
+    tables = (model.log_T, model.log_E, model.log_start, model.log_end)
+    parts = []
+    for b0 in range(0, seqs.shape[0], rows):
+        s, ln = seqs[b0:b0 + rows], lengths[b0:b0 + rows]
+        logp, _, path = viterbi_batch(*tables, s, ln, return_path=True)
+        parts.append(analytics_from_path(model.meta, logp, path, s, ln,
+                                         return_path=return_path))
+    return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
 
 
 def flank_rates(stats: dict, accuracy_filter: bool = False) -> np.ndarray:

@@ -12,7 +12,13 @@ where the window is longer than ``CKPT_TRACEBACK_L`` columns.
 Model "weights" are the numpy ``(art, sm)`` payload that
 ``build_locus_payload`` writes into ``model_bank/*.pkl.gz``, pickled with
 this package's classes.  ``load_reference_payload`` also reads a bank file
-that the reference package wrote, without importing that package.
+that the reference package wrote, without importing that package.  With
+``Config.trained_hmms_dir`` set, a locus's model comes from its
+pomegranate-JSON checkpoint ``<vid>_<read length>.json`` where one exists:
+structured when the extractor takes its topology, else the dense fallback
+(``device_analytics.read_stats_dense``).  A per-locus DNN model
+``<dnn_models_dir>/<vid>.npz`` pre-screens the orientations of unmapped
+reads before they are scored (engine/deep_recruitment.py).
 """
 
 from __future__ import annotations
@@ -31,11 +37,13 @@ import torch
 from advntr_tpu_torch import dna
 from advntr_tpu_torch.config import Config, DEFAULT_CONFIG
 from advntr_tpu_torch.engine.genotype import find_genotype, identify_frameshift
+from advntr_tpu_torch.engine import deep_recruitment as dr
 from advntr_tpu_torch.engine.haplotyper import PacBioHaplotyper
 from advntr_tpu_torch.io.bam import get_reference_genome_style
 from advntr_tpu_torch.models.compiler import (ModelArtifact, compile_graph,
                                              expand_path)
 from advntr_tpu_torch.models.graph import build_read_matcher
+from advntr_tpu_torch.models.hmm_json import load_trained_hmm
 from advntr_tpu_torch.models.profile import profile_for_repeats
 from advntr_tpu_torch.models.struct_compiler import (StructModel,
                                                      build_structured,
@@ -115,10 +123,13 @@ def _round_up(x: int, m: int) -> int:
 
 @dataclasses.dataclass
 class LocusModel:
-    """Everything score_reads needs for one compiled locus model."""
-    model: TorchStructModel        # padded device tables
+    """Everything score_reads needs for one compiled locus model: the
+    structured tables of the kernels or, for an imported model the
+    structured extractor refuses, the dense fallback's."""
+    model: TorchStructModel | None     # padded device tables
     n_pad: int                     # state count padded to the bucket
     art: ModelArtifact | None = None   # unpadded host artifact (names)
+    dense: da.DenseModel | None = None  # dense fallback, model is None
 
     def visited_states(self, path) -> list[str]:
         """A decoded artifact-space path as the full visited-state names
@@ -133,7 +144,7 @@ class LocusModel:
 
     def shape_key(self) -> tuple:
         """Same-key loci share kernel shapes and score as one group (the
-        key of analyzer.py:496-501)."""
+        key of analyzer.py:496-501); a dense model scores alone."""
         return self.model.shape_key() + (self.n_pad,)
 
 
@@ -161,6 +172,21 @@ def bank_payload_path(bank_dir: str, vid, copies: int, flank_size: int,
     suffix = ".slim" if SLIM_BANK else ""
     return os.path.join(bank_dir, "model_%s_%s_%s_%s%s.pkl.gz"
                         % (vid, copies, flank_size, error_rate, suffix))
+
+
+def build_and_save_payload(ref_vntr, copies: int, flank_size: int,
+                           error_rate: float, path: str) -> str:
+    """Build one locus payload and publish it atomically (tmp file, then
+    ``os.replace``), so that concurrent builders and readers never see a
+    torn pickle: the worker of ``buildbank`` (finder.py:158-172)."""
+    if os.path.exists(path):
+        return path
+    payload = build_locus_payload(ref_vntr, copies, flank_size, error_rate)
+    tmp = "%s.tmp.%d" % (path, os.getpid())
+    with gzip.open(tmp, "wb", compresslevel=1) as fh:
+        pickle.dump(payload, fh)
+    os.replace(tmp, path)
+    return path
 
 
 _REFERENCE_MODELS = "advntr_tpu.models."
@@ -299,11 +325,15 @@ class LocusModelCache:
         """Axes past 1024 pad to 512-multiples (finder.py:297-304)."""
         return max(bucket, 512) if size > 1024 else bucket
 
+    def _state_pad(self, art) -> int:
+        """The artifact's state count padded to its bucket."""
+        return _round_up(art.n_states,
+                         self._coarse_bucket(art.n_states,
+                                             self.state_bucket))
+
     def _pad(self, art, sm):
         """(art, sm padded to the buckets, the padded state count)."""
-        n_pad = _round_up(art.n_states,
-                          self._coarse_bucket(art.n_states,
-                                              self.state_bucket))
+        n_pad = self._state_pad(art)
         P_pad = _round_up(sm.P + 1,
                           self._coarse_bucket(sm.P + 1, self.pos_bucket))
         C_pad = _round_up(sm.C, self.unit_bucket if sm.C <= 24
@@ -324,6 +354,63 @@ class LocusModelCache:
         with host_step():
             padded = self._pad(art, build_structured(g, art))
         return self._upload(*padded)
+
+    def _build_imported(self, g, art) -> LocusModel:
+        """The model of an imported graph (finder.py:502-508): structured
+        when the extractor takes its topology, else the dense fallback
+        over the artifact padded to the state bucket (finder.py:339-345).
+        The host build raises ``HostStepError``; the upload is outside."""
+        with host_step():
+            try:
+                padded = self._pad(art, build_structured(g, art))
+            except Exception as error:
+                logging.info("imported topology refused by the structured "
+                             "extractor (%s): dense fallback", error)
+                padded = None
+            if padded is None:
+                n_pad = self._state_pad(art)
+                dense = _pad_artifact(art, n_pad)
+        if padded is not None:
+            return self._upload(*padded)
+        return LocusModel(model=None, n_pad=n_pad, art=art,
+                          dense=da.DenseModel.from_artifact(dense,
+                                                            self.device))
+
+
+def _pad_artifact(art, n_pad: int):
+    """Pad an artifact to n_pad states with unreachable dummy states."""
+    n = art.n_states
+    if n_pad == n:
+        return art
+    pad = n_pad - n
+
+    def pad2(x, fill):
+        out = np.full((n_pad, n_pad), fill, dtype=x.dtype)
+        out[:n, :n] = x
+        return out
+
+    def pad1(x, fill):
+        out = np.full((n_pad,) + x.shape[1:], fill, dtype=x.dtype)
+        out[:n] = x
+        return out
+
+    return dataclasses.replace(
+        art,
+        log_T=pad2(art.log_T, -np.inf),
+        log_E=pad1(art.log_E, -np.inf),
+        log_start=pad1(art.log_start, -np.inf),
+        log_end=pad1(art.log_end, -np.inf),
+        t_unit_starts=pad2(art.t_unit_starts, 0),
+        t_unit_ends=pad2(art.t_unit_ends, 0),
+        s_unit_starts=pad1(art.s_unit_starts, 0),
+        s_unit_ends=pad1(art.s_unit_ends, 0),
+        e_unit_starts=pad1(art.e_unit_starts, 0),
+        e_unit_ends=pad1(art.e_unit_ends, 0),
+        kind=pad1(art.kind, 3), region=pad1(art.region, 3),
+        pos=pad1(art.pos, 0), unit=pad1(art.unit, -1),
+        exp_base=pad1(art.exp_base, -1),
+        names=art.names + [f"__pad_{i}" for i in range(pad)],
+    )
 
 
 def flank_pattern_homology(pattern: str, left_flank: str,
@@ -383,6 +470,9 @@ class VNTRFinder:
                 self.minimum_right_flanking_size, rh)
         self.vntr_start = reference_vntr.start_point
         self.vntr_end = self.vntr_start + reference_vntr.get_length()
+        self._trained: dict = {}
+        self._dnn_loaded = False
+        self._dnn = None
 
     # -- model construction --------------------------------------------------
 
@@ -392,25 +482,73 @@ class VNTRFinder:
 
     def get_model(self, read_length: int, copies: int | None = None,
                   flank_size: int | None = None) -> LocusModel:
-        if self.config.trained_hmms_dir:
-            raise NotImplementedError(
-                "trained-HMM JSON models (trained_hmms_dir) are not ported "
-                "to advntr_tpu_torch yet; see ROADMAP.md A13")
+        trained = self._load_trained_hmm(read_length)
+        if trained is not None:
+            return trained
         copies = copies if copies is not None else \
             self.get_copies_for_hmm(read_length)
         flank_size = flank_size if flank_size is not None else read_length
         return self.cache.get(self.reference_vntr, copies, flank_size,
                               self.config.max_error_rate)
 
-    def _check_no_dnn_model(self) -> None:
-        """A per-locus DNN recruitment model (finder.py:514-524) would
-        pre-screen unmapped reads; that gate is not ported yet."""
-        path = os.path.join(self.config.dnn_models_dir,
-                            f"{self.reference_vntr.id}.npz")
+    def _load_trained_hmm(self, read_length: int) -> LocusModel | None:
+        """The locus's pomegranate-JSON checkpoint for this read length,
+        ``<trained_hmms_dir>/<vid>_<read_length>.json``, if a trained-HMM
+        directory is configured and the file exists (finder.py:475-512,
+        reference vntr_finder.py:117-138); cached per read length."""
+        if not self.config.trained_hmms_dir:
+            return None
+        if read_length in self._trained:
+            return self._trained[read_length]
+        path = os.path.join(self.config.trained_hmms_dir,
+                            f"{self.reference_vntr.id}_{read_length}.json")
+        lm = None
         if os.path.exists(path):
-            raise NotImplementedError(
-                f"DNN recruitment model {path} found; the DNN pre-gate is "
-                "not ported to advntr_tpu_torch yet (ROADMAP.md A11)")
+            with host_step():
+                g = load_trained_hmm(path)
+                art = compile_graph(g)
+            lm = self.cache._build_imported(g, art)
+            logging.info("loaded trained HMM %s", path)
+        self._trained[read_length] = lm
+        return lm
+
+    def _load_dnn_model(self) -> dr.RecruitmentMLP | None:
+        """The locus's DNN recruitment model ``<dnn_models_dir>/<vid>.npz``
+        on the finder's device, or None (finder.py:514-524, reference
+        vntr_finder.py:755-759); loaded once per finder."""
+        if not self._dnn_loaded:
+            path = os.path.join(self.config.dnn_models_dir,
+                                f"{self.reference_vntr.id}.npz")
+            with host_step():
+                model = dr.load_model(path)
+            self._dnn = model.to(self.device) if model is not None else None
+            self._dnn_loaded = True
+        return self._dnn
+
+    def _dnn_gate(self, reads) -> dict | None:
+        """{(read index, orientation): kept} for both orientations of each
+        unmapped read, or None without a DNN model (finder.py:574-594,
+        reference process_unmapped_read_with_dnn, vntr_finder.py:192-233):
+        an orientation is kept when the model's VNTR score beats its
+        decoy score.  The embeddings and the model run on the device."""
+        model = self._load_dnn_model()
+        if model is None or not reads:
+            return None
+        with host_step():
+            emb_rows, emb_info = [], []
+            for ri, (name, seq, is_mapped) in enumerate(reads):
+                if is_mapped:
+                    continue
+                codes = dna.encode(seq)
+                emb_rows += [codes, dna.revcomp_codes(codes)]
+                emb_info += [(ri, 0), (ri, 1)]
+            if not emb_rows:
+                return None
+            batch, lengths = dna.pad_batch(emb_rows, multiple=8)
+        probs = dr.predict(model, dr.embed_batch(batch, lengths,
+                                                 self.device)).cpu().numpy()
+        return {info: bool(probs[k, 0] > probs[k, 1])
+                for k, info in enumerate(emb_info)}
 
     def recruitment_score_threshold(self, read_length: int):
         # reference: vntr_finder.py:174-177
@@ -422,27 +560,37 @@ class VNTRFinder:
     # -- scoring -------------------------------------------------------------
 
     def prepare_rows(self, mapped_reads, unmapped_reads):
-        """Host-side batch prep: N-filter, both orientations of unmapped
-        reads.  Returns (reads, rows, row_info)."""
-        self._check_no_dnn_model()
+        """Batch prep (finder.py:545-611): N-filter, the DNN pre-screen of
+        unmapped orientations where the locus has a DNN model, both
+        orientations of unmapped reads.  A read whose two orientations
+        the gate both drops gets no row.  Returns (reads, rows,
+        row_info); the host steps raise ``HostStepError``."""
+        reads = []
+        with host_step():
+            for name, seq in mapped_reads:
+                seq = seq.upper()
+                if not dna.has_n(seq):
+                    reads.append((name, seq, True))
+            for name, seq in unmapped_reads:
+                seq = seq.upper()
+                if not dna.has_n(seq):
+                    reads.append((name, seq, False))
+        gate = self._dnn_gate(reads)
         rows: list[np.ndarray] = []
         row_info = []  # (read_index, orientation)
-        reads = []
-        for name, seq in mapped_reads:
-            seq = seq.upper()
-            if not dna.has_n(seq):
-                reads.append((name, seq, True))
-        for name, seq in unmapped_reads:
-            seq = seq.upper()
-            if not dna.has_n(seq):
-                reads.append((name, seq, False))
-        for ri, (name, seq, is_mapped) in enumerate(reads):
-            codes = dna.encode(seq)
-            rows.append(codes)
-            row_info.append((ri, 0))
-            if not is_mapped:
-                rows.append(dna.revcomp_codes(codes))
-                row_info.append((ri, 1))
+        with host_step():
+            for ri, (name, seq, is_mapped) in enumerate(reads):
+                codes = dna.encode(seq)
+                if is_mapped:
+                    rows.append(codes)
+                    row_info.append((ri, 0))
+                    continue
+                if gate is None or gate.get((ri, 0), False):
+                    rows.append(codes)
+                    row_info.append((ri, 0))
+                if gate is None or gate.get((ri, 1), False):
+                    rows.append(dna.revcomp_codes(codes))
+                    row_info.append((ri, 1))
         return reads, rows, row_info
 
     @staticmethod
@@ -585,11 +733,14 @@ class VNTRFinder:
         """Score a padded batch on the cache's device; numpy stats, with
         the decoded artifact-space paths (B, L) under "path" when
         ``return_paths``.  Long lattices (multi-kb long-read windows) take
-        the checkpointed traceback (finder.py:772-781)."""
+        the checkpointed traceback (finder.py:772-781); a dense model the
+        dense fallback, whatever the length (finder.py:793-796)."""
         seqs = torch.as_tensor(batch, device=self.device)
         lens = torch.as_tensor(lengths, device=self.device)
         path = {"return_path": True} if return_paths else {}
-        if seqs.shape[1] > CKPT_TRACEBACK_L:
+        if lm.dense is not None:
+            stats = da.read_stats_dense(lm.dense, seqs, lens, **path)
+        elif seqs.shape[1] > CKPT_TRACEBACK_L:
             stats = da.read_stats_ckpt(lm.model, seqs, lens,
                                        segment=CKPT_SEGMENT, **path)
         else:

@@ -25,27 +25,14 @@ the floor; the finder folds back only the emissions.  The M-step
 
 from __future__ import annotations
 
-import contextlib
-
 import numpy as np
 import torch
 
+from advntr_tpu_torch.device import full_float32_matmul
 from advntr_tpu_torch.ops.posterior import (beta_step, clean_neg,
                                             forward_planes, last_beta)
 from advntr_tpu_torch.ops.viterbi import (NEG32, emissions, exp_ftz,
                                           flush_, lse_)
-
-
-@contextlib.contextmanager
-def _full_float32_matmul():
-    """Float32 products in full float32 inside the block, whatever the
-    process-wide TF32 switch says; the switch is put back on exit."""
-    saved = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = saved
 
 
 def baum_welch_stats(log_T, log_E, log_start, log_end, seqs, lengths):
@@ -70,7 +57,7 @@ def baum_welch_stats(log_T, log_E, log_start, log_end, seqs, lengths):
     gamma_end = torch.sum(exp_ftz(aF + log_end[None, :]
                                   - loglik[:, None]), 0)
 
-    with _full_float32_matmul():
+    with full_float32_matmul():
         beta = last_beta(log_end, lengths, L)
         emit = torch.where((lengths == L)[:, None],
                            exp_ftz(aF + beta - loglik[:, None]),

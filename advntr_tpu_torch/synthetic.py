@@ -5,6 +5,7 @@ the port and the reference score the same inputs."""
 
 from __future__ import annotations
 
+import copy
 import os
 import random
 
@@ -16,7 +17,7 @@ from advntr_tpu_torch.io.bam import BamRead, BamWriter, build_bai
 from advntr_tpu_torch.models.compiler import compile_graph
 from advntr_tpu_torch.models.db import (create_vntrs_database,
                                   save_reference_vntr_to_database)
-from advntr_tpu_torch.models.graph import build_read_matcher
+from advntr_tpu_torch.models.graph import StateDef, build_read_matcher
 from advntr_tpu_torch.models.profile import profile_for_repeats
 from advntr_tpu_torch.models.reference_vntr import ReferenceVNTR
 from advntr_tpu_torch.models.struct_compiler import (build_structured,
@@ -68,6 +69,44 @@ def build_cstb_locus(read_length: int = 150):
     return graph, compile_graph(graph), left, right, CSTB_PATTERN
 
 
+def refused_topology(graph):
+    """A copy of a read-matcher graph with one more emitting state, an
+    insert taken with probability 0.01 between the first two prefix match
+    states: a topology the structured extractor refuses (its states no
+    longer fill the position axis), so an imported model of it takes the
+    dense fallback."""
+    g = copy.deepcopy(graph)
+    src, dst = g.idx("M1_prefix"), g.idx("M2_prefix")
+    extra = g.add(StateDef("Ix_extra", {b: 0.25 for b in "ACGT"}))
+    g.scale_out_edges(src, 0.99)
+    g.set_edge(src, extra, 0.01)
+    g.set_edge(extra, dst, 1.0)
+    return g
+
+
+def write_trained_hmms(workdir: str, db: str, read_length: int,
+                       refused: bool = False) -> str:
+    """A trained-HMM directory for ``Config.trained_hmms_dir``: for each
+    locus of the DB, ``<vid>_<read_length>.json`` holding the read-matcher
+    model that the engine itself builds for it at that read length (as
+    ``refused_topology`` of it under ``refused``).  Returns the
+    directory."""
+    from advntr_tpu_torch.models.db import load_unique_vntrs_data
+    from advntr_tpu_torch.models.hmm_json import save_trained_hmm
+    out = os.path.join(workdir, "trained_hmms")
+    os.makedirs(out, exist_ok=True)
+    for ref in load_unique_vntrs_data(db):
+        trans, emis = profile_for_repeats(list(ref.get_repeat_segments()),
+                                          0.05)
+        copies = int(round(read_length / len(ref.pattern) + 0.5))
+        g = build_read_matcher(ref.left_flanking_region[-read_length:],
+                               ref.right_flanking_region[:read_length],
+                               trans, emis, copies, 0.05)
+        save_trained_hmm(refused_topology(g) if refused else g,
+                         os.path.join(out, f"{ref.id}_{read_length}.json"))
+    return out
+
+
 def simulate_cstb_reads(left: str, pattern: str, right: str,
                         read_length: int, n_reads: int, seed: int = 9):
     """``n_reads`` reads of ``read_length`` bp drawn uniformly from 2- and
@@ -95,8 +134,22 @@ def write_cstb_sample(workdir: str, read_length: int = 100,
     ref.left_flanking_region, ref.right_flanking_region = left, right
     create_vntrs_database(db)
     save_reference_vntr_to_database(ref, db)
+    bam = os.path.join(workdir, "sample.bam")
+    write_diploid_bam(bam, ref, 2, 5, read_length, coverage)
+    return db, bam
+
+
+def write_diploid_bam(bam: str, ref, copies_a: int, copies_b: int,
+                      read_length: int, coverage: float,
+                      ref_length: int = 100000) -> None:
+    """An indexed BAM of reads drawn from ``copies_a``- and
+    ``copies_b``-copy haplotypes of a locus (its pattern between its
+    flanks, 0.2% substitutions, seed 5): every other read mapped over the
+    locus on its chromosome (``ref_length`` long), the others unmapped."""
+    start = ref.start_point
     reads, _, _ = simulate_diploid_reads(
-        left, CSTB_PATTERN, 2, 5, right, read_length=read_length,
+        ref.left_flanking_region, ref.pattern, copies_a, copies_b,
+        ref.right_flanking_region, read_length=read_length,
         coverage=coverage, error_rate=0.002, seed=5)
     mapped, unmapped = [], []
     for i, (name, seq) in enumerate(reads):
@@ -111,12 +164,43 @@ def write_cstb_sample(workdir: str, read_length: int = 100,
                 reference_start=-1, mapq=0, cigar=[], seq=seq,
                 qual=[38] * len(seq)))
     mapped.sort(key=lambda r: r.reference_start)
-    bam = os.path.join(workdir, "sample.bam")
-    with BamWriter(bam, ["chr21"], [100000]) as w:
+    with BamWriter(bam, [ref.chromosome], [ref_length]) as w:
         for r in mapped + unmapped:
             w.write(r)
     build_bai(bam)
-    return db, bam
+
+
+CSTB_DODECAMER = "CCCCGCCCCGCG"   # the dodecamer as the CSTB locus reads
+
+
+def write_addmodel_reference(workdir: str, length: int = 2_000_000,
+                             copies: int = 13, fragments: int = 12):
+    """A seeded random chromosome ``chr21`` of ``length`` bases with the
+    CSTB dodecamer x ``copies`` at its middle, and ``fragments`` mutated
+    pieces of the repeat array (3 or 4 units, one or two substitutions)
+    planted at seeded positions clear of the locus and its 500-base
+    flanks: the decoys that ``addmodel``'s scan finds (about 500 windows
+    a fragment, up to its cap of 10,000).  Writes ``reference.fa``;
+    returns (fasta path, chromosome, start, end, pattern)."""
+    from advntr_tpu_torch.io.fasta import write_fasta
+    rng = random.Random(21)
+    seq = [rng.choice("ACGT") for _ in range(length)]
+    start = length // 2
+    end = start + copies * len(CSTB_DODECAMER)
+    seq[start:end] = CSTB_DODECAMER * copies
+    placed = 0
+    while placed < fragments:
+        at = rng.randrange(1000, length - 1000)
+        if abs(at - start) < 700 + end - start:
+            continue
+        frag = list(CSTB_DODECAMER * rng.choice([3, 4]))
+        for _ in range(rng.choice([1, 2])):
+            frag[rng.randrange(len(frag))] = rng.choice("ACGT")
+        seq[at:at + len(frag)] = frag
+        placed += 1
+    fa = os.path.join(workdir, "reference.fa")
+    write_fasta(fa, [("chr21", "".join(seq))])
+    return fa, "chr21", start, end, CSTB_DODECAMER
 
 
 FRAMESHIFT_VID, FRAMESHIFT_PATTERN = 25561, "ACGGTCAGT"

@@ -130,9 +130,36 @@ turns, without holding them to anything.
    ``-u --em`` locus at read length 150 (2/5), with its wall time and
    launches.
 
-The Illumina path (phase 5), the long-read path (phase 7) and the
-frameshift and update path (phase 8) are each driven with every launch
-count set to 0 just before and read just after.
+9. model management (the fourth path): the DNN pre-gate at the
+   reference's width (4096 -> 100 -> 2, and with the 50-unit second
+   layer): the 6-mer embeddings of the CSTB fixture's unmapped reads
+   (150 bp) on the card equal to the CPU's bit for bit; a gate trained on
+   the card from parameters carried from a CPU ``init_params`` within
+   atol 1e-4 of the same training on the CPU, with equal decisions;
+   ``genotype`` with that gate in ``dnn_models/`` giving the same text on
+   the card and on the CPU (2/5), the rows it removed printed; ``predict``
+   at 8,192 rows and one Adam step timed.  ``addmodel --device cuda`` at
+   full width (read length 150, the CSTB dodecamer x 13 with 500-base
+   flanks on a seeded 2 Mb chromosome with mutated pieces of the array
+   planted: at least 5,000 decoys), its wall time split into the decoy
+   scan, the host model build and the scoring, with its B1/B2 launches;
+   the same training with the plain twins on the card: the scores within
+   rtol 1e-4 / atol 1e-2, the fitted integer thresholds and the stored
+   scaled_score equal; a 2/5 sample of the new locus genotyped 2/5.
+   Trained-HMM JSON models: the CSTB model saved as pomegranate JSON and
+   the 150 bp CSTB fixture genotyped with ``Config.trained_hmms_dir``
+   giving the text without it, on the card and on the CPU; a topology the
+   structured extractor refuses genotyped through the dense fallback on
+   the card (2/5), and the dense fallback at B 256 timed with its peak
+   memory, its statistics equal to the CPU's on 32 reads.  ``buildbank
+   -t 4`` (spawned workers) on phase 5's panel: the reference's file
+   names, a warm ``genotype`` with no host model build giving phase 5's
+   text, then ``delmodel`` of one locus and ``viewmodel`` listing 23.
+
+The Illumina path (phase 5), the long-read path (phase 7), the
+frameshift and update path (phase 8) and model management (phase 9) are
+each driven with every launch count set to 0 just before and read just
+after.
 The last three lines are the nvidia-smi line, one JSON object of the
 kernels, and {"ok": true, "device": {...}}.
 """
@@ -1675,6 +1702,484 @@ def phase_update_frameshift(dev, kernels):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---- model management (phase 9) ---------------------------------------------
+
+# the gate's timed shape, and its card-against-CPU tolerance
+GATE_ROWS, GATE_ATOL = 8192, 1e-4
+# the dense fallback's timed batch, and the reads the CPU computes again
+DENSE_B, DENSE_CPU_READS = 256, 32
+
+
+def gate_bound_ms(model, rows: int) -> tuple[float, str]:
+    """The least time of ``predict`` on (rows, 4096) embeddings: its
+    float32 products (two operations a multiply-add) over 67 TFLOP/s
+    against the embeddings, weights and output moved once over
+    3.35 TB/s; the larger, and which."""
+    params = sum(p.numel() for p in model.parameters())
+    macs = sum(p.numel() for n, p in model.named_parameters()
+               if n.startswith("w"))
+    ops_ms = 2 * rows * macs / 67e12 * 1e3
+    bytes_ms = 4 * (rows * 4096 + params + rows * 2) / 3.35e12 * 1e3
+    return max(ops_ms, bytes_ms), \
+        "operations" if ops_ms >= bytes_ms else "bytes"
+
+
+def _spy(obj, name, calls):
+    """Wrap ``obj.name`` so that each call appends (args, result,
+    seconds) to ``calls``; returns the original."""
+    orig = getattr(obj, name)
+
+    def wrapped(*args, **kw):
+        t0 = time.perf_counter()
+        out = orig(*args, **kw)
+        calls.append((args, out, time.perf_counter() - t0))
+        return out
+
+    setattr(obj, name, wrapped)
+    return orig
+
+
+def genotype_text(db, bam, workdir, device, **fields) -> str:
+    """``genotype`` of every locus of ``db`` through the GenomeAnalyzer
+    with Config ``fields`` the CLI has no flag for, as the CLI runs it
+    (one I/O thread, no worker pool); the text."""
+    import dataclasses
+    from advntr_tpu_torch.config import Config
+    import io
+    from advntr_tpu_torch.engine.analyzer import GenomeAnalyzer
+    from advntr_tpu_torch.models.db import load_unique_vntrs_data
+    os.makedirs(workdir, exist_ok=True)
+    refs = load_unique_vntrs_data(db)
+    buf = io.StringIO()
+    analyzer = GenomeAnalyzer(refs, [r.id for r in refs], workdir + "/",
+                              "text", False, None, bam,
+                              config=dataclasses.replace(
+                                  Config(), io_threads=1, **fields),
+                              out=buf, device=device)
+    try:
+        analyzer.find_repeat_counts_from_alignment_file(bam)
+    finally:
+        analyzer.model_cache.close()
+    return buf.getvalue()
+
+
+def phase_gate(dev, tmp):
+    """The DNN pre-gate on the card at the reference's width."""
+    from advntr_tpu_torch import dna
+    from advntr_tpu_torch.engine import deep_recruitment as dr
+    from advntr_tpu_torch.engine import finder as finder_mod
+    from advntr_tpu_torch.io.bam import BamReader
+    from advntr_tpu_torch.synthetic import rand_seq, write_cstb_sample
+    cpu = torch.device("cpu")
+    wd = os.path.join(tmp, "gate")
+    os.makedirs(wd)
+    db, bam = write_cstb_sample(wd, read_length=READ_LEN)
+    with BamReader(bam) as reader:
+        reads = [r.seq for r in reader]
+        unmapped = [r.seq for r in reader.fetch_unmapped()]
+    rows = []
+    for seq in unmapped:
+        codes = dna.encode(seq)
+        rows += [codes, dna.revcomp_codes(codes)]
+    batch, lengths = dna.pad_batch(rows, multiple=8)
+    emb = dr.embed_batch(batch, lengths, dev)
+    check(torch.equal(emb.cpu(), dr.embed_batch(batch, lengths, cpu)),
+          "gate: embeddings on the card differ from the CPU's")
+    out = {"unmapped_rows": len(rows)}
+    # training set: every read of the fixture (VNTR) against 200 seeded
+    # random reads
+    negatives = [rand_seq(5000 + i, READ_LEN) for i in range(200)]
+    tb, tl = dna.pad_batch([dna.encode(s) for s in reads + negatives],
+                           multiple=8)
+    x = dr.embed_batch(tb, tl, dev)
+    labels = np.array([1] * len(reads) + [0] * len(negatives))
+    models = {}
+    orig_init = dr.init_params
+    try:
+        for second in (0, 50):
+            start = orig_init(second_layer=second,
+                              generator=torch.Generator().manual_seed(0))
+            carried = start.to_numpy()
+            dr.init_params = lambda first_layer=100, second_layer=0, \
+                generator=None: dr.RecruitmentMLP.from_numpy(carried)
+            card = dr.train(x, labels, epochs=3, second_layer=second,
+                            device=dev)
+            host = dr.train(x.cpu(), labels, epochs=3, second_layer=second,
+                            device="cpu")
+            err = max(float(np.abs(v - host.to_numpy()[k]).max())
+                      for k, v in card.to_numpy().items())
+            check(err <= GATE_ATOL,
+                  f"gate ({second} second-layer units): parameters trained "
+                  f"on the card differ from the CPU's by {err}")
+            p_card = dr.predict(card, torch.cat([x, emb])).cpu()
+            p_host = dr.predict(host, torch.cat([x, emb]).cpu())
+            margin = float((p_host[:, 0] - p_host[:, 1]).abs().min())
+            check(torch.equal(p_card[:, 0] > p_card[:, 1],
+                              p_host[:, 0] > p_host[:, 1]),
+                  f"gate ({second} second-layer units): decisions on the "
+                  f"card differ from the CPU's (smallest margin {margin})")
+            models[second] = card
+            out[f"train_vs_cpu_max_abs_err_{second}"] = err
+            out[f"decision_min_margin_{second}"] = margin
+    finally:
+        dr.init_params = orig_init
+    log(f"gate: embeddings of {len(rows)} unmapped rows bit-identical to "
+        f"the CPU; trained on the card from carried parameters, 3 epochs "
+        f"of {len(labels)} reads: within {out['train_vs_cpu_max_abs_err_0']:.3g}"
+        f" (4096-100-2) and {out['train_vs_cpu_max_abs_err_50']:.3g} "
+        f"(4096-100-50-2) of the CPU, decisions equal (smallest margins "
+        f"{out['decision_min_margin_0']:.3g}, "
+        f"{out['decision_min_margin_50']:.3g})")
+
+    # genotype with the gate in dnn_models/ under the working directory
+    os.makedirs(os.path.join(wd, "dnn_models"))
+    dr.save_model(models[0], os.path.join(wd, "dnn_models", "301645.npz"))
+    gated = []
+    orig_gate = _spy(finder_mod.VNTRFinder, "_dnn_gate", gated)
+    here = os.getcwd()
+    os.chdir(wd)
+    try:
+        texts = {}
+        for device in ("cuda", "cpu"):
+            run = os.path.join(wd, "run_" + device)
+            os.makedirs(run)
+            texts[device], out[f"genotype_{device}_s"] = run_cli(
+                ["genotype", "-a", bam, "-m", db, "--working_directory",
+                 run, "--disable_logging", "-o",
+                 os.path.join(run, "out.txt"), "--device", device])
+    finally:
+        os.chdir(here)
+        finder_mod.VNTRFinder._dnn_gate = orig_gate
+    check(texts["cuda"] == texts["cpu"],
+          f"gated genotype: cuda {texts['cuda'].split()}, cpu "
+          f"{texts['cpu'].split()}")
+    check(texts["cuda"].split() == ["301645", "2/5"],
+          f"gated genotype: {texts['cuda'].split()}")
+    removed = [sum(not v for v in res.values()) for _, res, _ in gated]
+    check(len(gated) == 2 and removed[0] == removed[1],
+          f"gate: rows removed on the card and the CPU {removed}")
+    out["rows_gated_out"] = removed[0]
+    out["unmapped_orientations"] = len(gated[0][1])
+    log(f"gated genotype: 301645 2/5 on the card and the CPU; the gate "
+        f"removed {removed[0]} of {len(gated[0][1])} unmapped orientations "
+        f"({out['genotype_cuda_s']:.2f} s on the card, "
+        f"{out['genotype_cpu_s']:.2f} s on the CPU)")
+
+    # timed: predict at GATE_ROWS rows, one Adam step on a batch of 10
+    reps = -(-GATE_ROWS // x.shape[0])
+    big = x.repeat(reps, 1)[:GATE_ROWS].contiguous()
+    for second, model in models.items():
+        ms = time_ms(lambda: dr.predict(model, big))
+        bound, by = gate_bound_ms(model, GATE_ROWS)
+        out[f"predict_ms_{second}"] = ms
+        out[f"predict_bound_ms_{second}"] = bound
+        out[f"predict_bound_by_{second}"] = by
+    step_model = dr.RecruitmentMLP.from_numpy(models[0].to_numpy(), dev)
+    opt = dr.adam(step_model)
+    onehot = torch.as_tensor(np.stack([labels, 1 - labels], 1)[:10],
+                             dtype=torch.float32, device=dev)
+    out["adam_step_ms"] = time_ms(
+        lambda: dr.adam_step(step_model, opt, x[:10], onehot))
+    log(f"gate: predict at {GATE_ROWS} rows {out['predict_ms_0']:.4f} ms "
+        f"(4096-100-2; bound {out['predict_bound_ms_0']:.4f} ms, "
+        f"{out['predict_bound_by_0']}, reached "
+        f"{out['predict_bound_ms_0'] / out['predict_ms_0']:.3f}), "
+        f"{out['predict_ms_50']:.4f} ms with the 50-unit layer (bound "
+        f"{out['predict_bound_ms_50']:.4f}); one Adam step at batch 10 "
+        f"{out['adam_step_ms']:.4f} ms (CUDA events, medians of 10)")
+    return out
+
+
+def phase_addmodel(dev, kernels, tmp):
+    """``addmodel --device cuda`` at full width, held to the plain twins
+    on the card, and the new locus genotyped."""
+    from advntr_tpu_torch.engine import device_analytics as da
+    from advntr_tpu_torch.engine import finder as finder_mod
+    from advntr_tpu_torch.engine import training
+    from advntr_tpu_torch.io.fasta import load_chromosome
+    from advntr_tpu_torch.models.db import load_unique_vntrs_data
+    from advntr_tpu_torch.ops import viterbi_fused as vf
+    from advntr_tpu_torch.synthetic import (write_addmodel_reference,
+                                            write_diploid_bam)
+    wd = os.path.join(tmp, "addmodel")
+    os.makedirs(wd)
+    fa, chrom, start, end, pattern = write_addmodel_reference(wd)
+    db = os.path.join(wd, "models.db")
+    spied = [(training, "find_recruitment_score_threshold"),
+             (training, "simulate_false_filtered_reads"),
+             (finder_mod, "build_locus_payload"),
+             (finder_mod.VNTRFinder, "score_reads")]
+    calls = {name: [] for _, name in spied}
+    originals = [(obj, name, _spy(obj, name, calls[name]))
+                 for obj, name in spied]
+    orig_read_stats = da.read_stats
+    try:
+        before = dict(kernels.LAUNCHES)
+        t0 = time.perf_counter()
+        from advntr_tpu_torch import cli
+        cli.main(["addmodel", "-r", fa, "-c", chrom, "-p", pattern, "-s",
+                  str(start), "-e", str(end), "-g", "CSTB", "-a",
+                  "Promoter", "-m", db, "--device", "cuda"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v - before[k] for k, v in kernels.LAUNCHES.items()}
+        split = {name: sum(c[2] for c in got) for name, got in calls.items()}
+        (_, decoys, _), = calls["simulate_false_filtered_reads"]
+        for k in ILLUMINA_KERNELS:
+            check(launches[k] > 0, f"addmodel never launched {k}")
+        (ref,) = load_unique_vntrs_data(db)
+        check(ref.get_repeat_segments() == [pattern] * 13
+              and len(ref.left_flanking_region) == 500,
+              f"addmodel: segments {ref.get_repeat_segments()}")
+        fits = calls["find_recruitment_score_threshold"]
+        (args, threshold, _), = fits
+        true_k, false_k = args
+        check(len(decoys) >= 5000, f"addmodel: the scan found {len(decoys)} "
+                                   "decoys, not at least 5,000")
+        # the same training with the plain twins on the card
+        da.read_stats = lambda model, seqs, lengths, return_path=False, \
+            **kw: vf.viterbi_stats_reference(model, seqs, lengths,
+                                             return_path=return_path)
+        t0 = time.perf_counter()
+        twin_scaled = training.train_classifier_threshold(
+            ref, load_chromosome(fa, chrom), READ_LEN, device=dev)
+        twin_s = time.perf_counter() - t0
+    finally:
+        da.read_stats = orig_read_stats
+        for obj, name, orig in originals:
+            setattr(obj, name, orig)
+    (args, twin_threshold, _) = fits[1]
+    for what, got, want in (("true", true_k, args[0]),
+                            ("decoy", false_k, args[1])):
+        check(len(got) == len(want),
+              f"addmodel: {len(got)} {what} scores with the kernels, "
+              f"{len(want)} with the twins")
+        check(np.allclose(got, want, **LOGP_TOL),
+              f"addmodel: {what} scores differ from the twins' by "
+              f"{np.abs(np.array(got) - np.array(want)).max()}")
+    err = max(float(np.abs(np.array(a) - np.array(b)).max())
+              for a, b in ((true_k, args[0]), (false_k, args[1])))
+    check(threshold == twin_threshold,
+          f"addmodel: threshold {threshold} with the kernels, "
+          f"{twin_threshold} with the twins")
+    check(ref.scaled_score == twin_scaled
+          and ref.scaled_score == threshold / READ_LEN,
+          f"addmodel: stored scaled_score {ref.scaled_score}, the twins' "
+          f"{twin_scaled}")
+    bam = os.path.join(wd, "sample.bam")
+    write_diploid_bam(bam, ref, 2, 5, READ_LEN, 40, ref_length=2_000_000)
+    text, gs = run_cli(["genotype", "-a", bam, "-m", db,
+                        "--working_directory", wd, "--disable_logging",
+                        "-o", os.path.join(wd, "out.txt"), "--device",
+                        "cuda"])
+    check(text.split() == [str(ref.id), "2/5"],
+          f"addmodel's locus genotyped {text.split()}")
+    out = {"wall_s": wall, "decoy_scan_s":
+           split["simulate_false_filtered_reads"],
+           "host_model_build_s": split["build_locus_payload"],
+           "scoring_s": split["score_reads"], "true_reads": len(true_k),
+           "decoys": len(decoys), "decoys_kept": len(false_k),
+           "threshold": threshold,
+           "scaled_score": ref.scaled_score, "twins_s": twin_s,
+           "max_abs_logp_vs_twins": err, "launches": launches,
+           "genotype_s": gs}
+    log(f"addmodel --device cuda (read length {READ_LEN}, "
+        f"{pattern} x 13, 2 Mb chromosome): {wall:.2f} s: decoy scan "
+        f"{out['decoy_scan_s']:.2f} s, host model build "
+        f"{out['host_model_build_s']:.2f} s, scoring {out['scoring_s']:.2f} "
+        f"s ({len(decoys)} decoys found, {len(true_k)} true and "
+        f"{len(false_k)} decoy reads kept); "
+        f"launches {launches}; threshold {threshold} (scaled "
+        f"{ref.scaled_score}) equal to the twins' on the card ({twin_s:.1f} "
+        f"s), scores within {err:.3g}; the new locus genotyped 2/5 in "
+        f"{gs:.2f} s")
+    return out
+
+
+def phase_trained_hmm(dev, tmp):
+    """Trained-HMM JSON models on the card: the CSTB model imported as it
+    is (structured) and a refused topology (the dense fallback)."""
+    from advntr_tpu_torch.engine import device_analytics as da
+    from advntr_tpu_torch.engine.finder import LocusModelCache, VNTRFinder
+    from advntr_tpu_torch.models.compiler import compile_graph
+    from advntr_tpu_torch.models.hmm_json import (
+        graph_from_pomegranate_json, graph_to_pomegranate_json)
+    from advntr_tpu_torch.ops import viterbi_fused as vf
+    from advntr_tpu_torch.synthetic import (build_cstb_locus, encode_reads,
+                                            refused_topology,
+                                            simulate_cstb_reads,
+                                            write_cstb_sample,
+                                            write_trained_hmms)
+    wd = os.path.join(tmp, "trained")
+    os.makedirs(wd)
+    db, bam = write_cstb_sample(wd, read_length=READ_LEN)
+    same = write_trained_hmms(os.path.join(wd, "same"), db, READ_LEN)
+    refused = write_trained_hmms(os.path.join(wd, "refused"), db, READ_LEN,
+                                 refused=True)
+    loaded, dense_calls = [], []
+    orig_load = _spy(VNTRFinder, "_load_trained_hmm", loaded)
+    orig_dense = _spy(da, "read_stats_dense", dense_calls)
+    texts, secs = {}, {}
+    try:
+        for device in ("cuda", "cpu"):
+            for name, hmms in (("plain", None), ("trained", same)):
+                t0 = time.perf_counter()
+                texts[name, device] = genotype_text(
+                    db, bam, os.path.join(wd, f"{name}_{device}"), device,
+                    trained_hmms_dir=hmms)
+                secs[name, device] = time.perf_counter() - t0
+        struct_on = {lm.model.device.type for _, lm, _ in loaded
+                     if lm is not None and lm.model is not None}
+        t0 = time.perf_counter()
+        texts["dense", "cuda"] = genotype_text(
+            db, bam, os.path.join(wd, "dense_cuda"), "cuda",
+            trained_hmms_dir=refused)
+        torch.cuda.synchronize()
+        secs["dense", "cuda"] = time.perf_counter() - t0
+    finally:
+        VNTRFinder._load_trained_hmm = orig_load
+        da.read_stats_dense = orig_dense
+    want = texts["plain", "cuda"]
+    check(want.split() == ["301645", "2/5"], f"CSTB at 150: {want.split()}")
+    for key, text in texts.items():
+        check(text == want, f"trained HMMs: {key} gives {text.split()}, "
+                            f"without them {want.split()}")
+    check(struct_on == {"cuda", "cpu"},
+          f"trained HMMs: structured imports on {struct_on}, not on both "
+          "devices")
+    check(len(dense_calls) >= 1
+          and all(args[1].is_cuda for args, _, _ in dense_calls),
+          "the refused topology did not take the dense fallback on the "
+          "card")
+    log("trained HMMs: CSTB 2/5 at 150 bp with trained_hmms_dir equal to "
+        "the text without it on the card and the CPU ("
+        + ", ".join(f"{a} {b} {v:.2f} s" for (a, b), v in secs.items())
+        + f"); the refused topology through the dense fallback on the card "
+          f"({len(dense_calls)} calls): 2/5")
+
+    # the dense fallback at B 256 on the card, 32 reads against the CPU
+    graph, _, left, right, pattern = build_cstb_locus(READ_LEN)
+    g = graph_from_pomegranate_json(
+        graph_to_pomegranate_json(refused_topology(graph)))
+    art = compile_graph(g)
+    lm = LocusModelCache(device=dev)._build_imported(g, art)
+    check(lm.model is None and lm.dense is not None,
+          "the refused topology did not give a dense model")
+    batch, lengths = encode_reads(
+        simulate_cstb_reads(left, pattern, right, READ_LEN, DENSE_B, seed=9),
+        READ_LEN)
+    seqs = torch.as_tensor(batch, device=dev)
+    lens = torch.as_tensor(lengths, device=dev)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    res = da.read_stats_dense(lm.dense, seqs, lens)
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    ms = time_ms(lambda: da.read_stats_dense(lm.dense, seqs, lens),
+                 iters=3, warmup=0)
+    k = DENSE_CPU_READS
+    host = LocusModelCache(device="cpu")._build_imported(g, art)
+    want = da.read_stats_dense(host.dense, seqs[:k].cpu(), lens[:k].cpu())
+    check(torch.allclose(res["logp"][:k].cpu(), want["logp"], **LOGP_TOL),
+          "dense fallback: logp on the card differs from the CPU's")
+    for key in vf.STAT_KEYS:
+        check(torch.equal(res[key][:k].cpu(), want[key]),
+              f"dense fallback: {key} on the card differs from the CPU's")
+    check(bool(torch.isfinite(res["logp"]).all()),
+          "dense fallback: logp not finite")
+    n, L = lm.dense.n_states, seqs.shape[1]
+    bound = 2 * DENSE_B * (L - 1) * n * n / 67e12 * 1e3
+    err = float((res["logp"][:k].cpu() - want["logp"]).abs().max())
+    out = {"dense_ms": ms, "dense_peak_mib": peak,
+           "dense_B": DENSE_B, "dense_n": n, "dense_L": L,
+           "dense_bound_ms": bound, "dense_bound_by": "operations",
+           "dense_vs_cpu_max_abs_logp": err,
+           "genotype_s": {f"{a}_{b}": v for (a, b), v in secs.items()}}
+    log(f"dense fallback (B {DENSE_B}, n {n} padded, L {L}, rows in chunks "
+        f"of {da.DENSE_CHUNK_BYTES // (4 * n * n)}): {ms:.3f} ms (median "
+        f"of 3), peak {peak:.1f} MiB; bound {bound:.4f} ms (operations), "
+        f"reached {bound / ms:.5f}; the first {k} reads' statistics equal "
+        f"to the CPU's, max |logp diff| {err}")
+    return out
+
+
+def phase_buildbank(tmp, panel_text):
+    """``buildbank -t 4`` on phase 5's panel, a warm genotype from it,
+    then ``delmodel`` and ``viewmodel``."""
+    import contextlib
+    import io
+    from advntr_tpu_torch import cli
+    from advntr_tpu_torch.engine import finder as finder_mod
+    from advntr_tpu_torch.models.db import load_unique_vntrs_data
+    from advntr_tpu_torch.synthetic import write_panel
+    wd = os.path.join(tmp, "bank")
+    os.makedirs(wd)
+    db, bam, truth = write_panel(wd, n_loci=PANEL_LOCI, read_length=150,
+                                 coverage=30)
+    refs = load_unique_vntrs_data(db)
+    t0 = time.perf_counter()
+    cli.main(["buildbank", "-m", db, "--working_directory", wd, "-l",
+              "150", "-t", "4"])
+    build_s = time.perf_counter() - t0
+    bank = os.path.join(wd, "model_bank")
+    names = {os.path.basename(finder_mod.bank_payload_path(
+        bank, r.id, int(round(150 / len(r.pattern) + 0.5)), 150, 0.05))
+        for r in refs}
+    check(set(os.listdir(bank)) == names,
+          f"buildbank wrote {sorted(os.listdir(bank))[:3]}..., not the "
+          "reference's file names")
+    builds = []
+    orig = _spy(finder_mod, "build_locus_payload", builds)
+    try:
+        text, warm_s = run_cli(["genotype", "-a", bam, "-m", db,
+                                "--working_directory", wd,
+                                "--disable_logging", "-o",
+                                os.path.join(wd, "out.txt"), "--device",
+                                "cuda"])
+    finally:
+        finder_mod.build_locus_payload = orig
+    check(not builds, f"warm genotype built {len(builds)} models on the "
+                      "host despite the bank")
+    check(text == panel_text, "genotype from the bank differs from phase "
+                              "5's panel text")
+    cli.main(["delmodel", "-vid", str(refs[0].id), "-m", db])
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["viewmodel", "-m", db])
+    listed = buf.getvalue().splitlines()[2:]
+    check(len(listed) == PANEL_LOCI - 1
+          and not any(line.startswith(f"{refs[0].id}\t") for line in listed),
+          f"viewmodel lists {len(listed)} loci after delmodel")
+    log(f"buildbank -t 4: {len(names)} payloads under the reference's "
+        f"names in {build_s:.2f} s; warm genotype from the bank "
+        f"{warm_s:.2f} s with no host model build, phase 5's text; "
+        f"delmodel {refs[0].id}, viewmodel lists {len(listed)}")
+    return {"build_s": build_s, "warm_genotype_s": warm_s,
+            "payloads": len(names), "listed_after_delmodel": len(listed)}
+
+
+def phase_model_management(dev, kernels, panel_text):
+    """Phase 9, the model-management path: every kernel count starts at 0
+    here and is read at the end (the twins launch none)."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_models_")
+    try:
+        kernels.reset_launches()
+        gate = phase_gate(dev, tmp)
+        addmodel = phase_addmodel(dev, kernels, tmp)
+        trained = phase_trained_hmm(dev, tmp)
+        bank = phase_buildbank(tmp, panel_text)
+        launches = dict(kernels.LAUNCHES)
+        log(f"model management (cuda): launches {launches}")
+        for k in ILLUMINA_KERNELS:
+            check(launches[k] > 0,
+                  f"kernel {k} never launched on the model-management path")
+        return {"gate": gate, "addmodel": addmodel, "trained": trained,
+                "buildbank": bank, "launches": launches}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def run_cli(argv) -> tuple[str, float]:
     from advntr_tpu_torch import cli
     t0 = time.perf_counter()
@@ -1800,7 +2305,7 @@ def phase_end_to_end(kernels, profile: bool):
         log(f"panel: {n} loci in {secs['panel']:.2f} s cold "
             f"({n / secs['panel']:.3f} loci/s, host model builds included), "
             f"{warm_s:.2f} s warm from the bank ({n / warm_s:.3f} loci/s)")
-        return launches, warm_launches
+        return launches, warm_launches, gpu["panel"]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1830,7 +2335,8 @@ def main() -> None:
     walk = phase_walk(_kernels, m, seqs, lens, group, sources)
     del group
     phase_recruitment(dev)
-    launches, warm_launches = phase_end_to_end(_kernels, profile)
+    launches, warm_launches, panel_text = phase_end_to_end(_kernels,
+                                                           profile)
     wide_err = phase_wide_vs_twins(dev, _kernels)
     units_off = phase_wide_units_off(dev, _kernels)
     long_ = phase_long_reads(dev, _kernels, (m, seqs, lens), LONG_L, LONG_B)
@@ -1841,6 +2347,7 @@ def main() -> None:
     align_ = phase_local_align(dev, _kernels, align_sources)
     pacbio_launches = phase_pacbio_cli(_kernels)
     a10 = phase_update_frameshift(dev, _kernels)
+    models = phase_model_management(dev, _kernels, panel_text)
     tail = None
     if long_tail:
         tail = phase_long_reads(dev, _kernels, None, TAIL_L, TAIL_B,
@@ -1858,6 +2365,8 @@ def main() -> None:
          "bound_by": ms["bound"]["B1"][1], "library_ms": None,
          "warm_panel_launches": warm_launches["forward"],
          "update_frameshift_launches": a10["launches"]["forward"],
+         "model_management_launches": models["launches"]["forward"],
+         "addmodel_launches": models["addmodel"]["launches"]["forward"],
          "group_ms": ms["group"]["B1"],
          "group_bound_ms": ms["group"]["B1_bound"]},
         {"name": "viterbi_backward", "route": "cuda",
@@ -1870,6 +2379,8 @@ def main() -> None:
          "warm_panel_launches": warm_launches["backward"],
          "update_frameshift_launches": a10["launches"]["backward"],
          "update_frameshift_path_decodes": a10["path_decodes"],
+         "model_management_launches": models["launches"]["backward"],
+         "addmodel_launches": models["addmodel"]["launches"]["backward"],
          "wrapper_ms": ms["B2"][0], "path_ms": walk["cell"]["ms_path"],
          "chain_floor_ms": walk["cell"]["floor_ms"],
          "windows_per_read": walk["cell"]["windows_mean"],
@@ -1942,6 +2453,9 @@ def main() -> None:
         + json.dumps({k: a10[k] for k in ("posterior", "baum_welch",
                                           "fs150_s", "em150_s",
                                           "em150_launches")}))
+    log("model management (plain PyTorch beside B1/B2): " + json.dumps(
+        {k: models[k] for k in ("gate", "addmodel", "trained",
+                                "buildbank")}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -59,7 +59,7 @@ INTENDED = {
     "models/graph.py": None, "models/compiler.py": None,
     "models/struct_compiler.py": None, "models/profile.py": None,
     "models/msa.py": None, "models/reference_vntr.py": None,
-    "models/db.py": None,
+    "models/db.py": None, "models/hmm_json.py": None,
     "io/bgzf.py": None, "io/bam.py": None, "io/sam.py": None,
     "io/fasta.py": None, "io/cram.py": None,
     "engine/genotype.py": None, "engine/coverage_bias.py": None,
@@ -91,21 +91,29 @@ def test_copy_text_equals_original(module):
 
 def test_seam_functions_equal_their_originals():
     """The numpy Viterbi of reference_vntr.py's repeat finder, the numpy
-    local alignment of ops/align.py, and the host numpy parts of the
-    posterior and Baum-Welch modules (``log_sub``, the M-step) are
-    verbatim parts of modules the port does not copy whole; so is the
+    local alignment of ops/align.py, the host numpy parts of the
+    posterior and Baum-Welch modules (``log_sub``, the M-step), the
+    decoy scan of the training module and the finder's artifact padding
+    are verbatim parts of modules the port does not copy whole; so is the
     NEG32 floor."""
     import inspect
 
+    from advntr_tpu.engine import finder as jfinder
+    from advntr_tpu.engine import training as jtraining
     from advntr_tpu.ops import align as jalign
     from advntr_tpu.ops import baum_welch as jbw
     from advntr_tpu.ops import posterior as jposterior
     from advntr_tpu.ops import viterbi as jviterbi
+    from advntr_tpu_torch.engine import finder, training
     from advntr_tpu_torch.ops import align, baum_welch, posterior, viterbi
     pairs = [(viterbi.viterbi_numpy, jviterbi.viterbi_numpy),
              (align.local_align, jalign.local_align),
              (posterior.log_sub, jposterior.log_sub),
-             (baum_welch.baum_welch_update, jbw.baum_welch_update)]
+             (baum_welch.baum_welch_update, jbw.baum_welch_update),
+             (training.rolling_kmer_codes, jtraining.rolling_kmer_codes),
+             (training.simulate_false_filtered_reads,
+              jtraining.simulate_false_filtered_reads),
+             (finder._pad_artifact, jfinder._pad_artifact)]
     for own, ref in pairs:
         assert inspect.getsource(own) == inspect.getsource(ref), own.__name__
     assert viterbi.NEG32 == jviterbi.NEG32

@@ -1,7 +1,7 @@
-"""The port imports and genotypes with jax, the JAX package ``advntr_tpu``
-and the JAX side's ``bench`` module all unimportable, never imports any of
-them in its sources or in ``chip_smoke.py``, and takes the flags of the
-paths it has ported."""
+"""The port imports and genotypes with jax, the JAX package ``advntr_tpu``,
+the JAX side's ``bench`` module, optax and sklearn all unimportable, never
+imports any of them in its sources or in ``chip_smoke.py``, and takes the
+flags of the paths it has ported."""
 
 import os
 import sqlite3
@@ -29,6 +29,8 @@ import importlib, os, pkgutil, sys, tempfile
 sys.modules["jax"] = None          # any import of these now fails
 sys.modules["advntr_tpu"] = None
 sys.modules["bench"] = None
+sys.modules["optax"] = None
+sys.modules["sklearn"] = None
 import torch
 torch.set_num_threads(1)
 import advntr_tpu_torch
@@ -37,7 +39,9 @@ for mod in pkgutil.walk_packages(advntr_tpu_torch.__path__,
     importlib.import_module(mod.name)
 from advntr_tpu_torch import cli
 from advntr_tpu_torch.synthetic import write_cstb_sample
-for argv in (["--help"], ["genotype", "--help"]):
+for argv in (["--help"], ["genotype", "--help"], ["viewmodel", "--help"],
+             ["addmodel", "--help"], ["delmodel", "--help"],
+             ["buildbank", "--help"]):
     try:
         cli.main(argv)
     except SystemExit as e:
@@ -49,7 +53,8 @@ cli.main(["genotype", "-a", bam, "-m", db, "--working_directory", d,
           "--disable_logging", "-o", out, "--device", "cpu"])
 print(open(out).read().split())
 assert not [m for m in sys.modules
-            if m.startswith(("jax.", "advntr_tpu.", "bench."))]
+            if m.startswith(("jax.", "advntr_tpu.", "bench.", "optax.",
+                             "sklearn."))]
 """
 
 
@@ -61,28 +66,37 @@ def test_imports_and_genotypes_without_jax(tmp_path):
                          timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     assert "genotype" in res.stdout and "--device" in res.stdout
+    for sub in ("addmodel", "delmodel", "buildbank"):
+        assert "usage: advntr-tpu-torch %s" % sub in res.stdout
     assert res.stdout.strip().splitlines()[-1] == "['301645', '2/5']"
 
 
 FORBIDDEN_IMPORT = re.compile(
-    r"^\s*(from|import)\s+(jax|bench|advntr_tpu)(\.|\s|$)", re.M)
+    r"^\s*(from|import)\s+(jax|bench|advntr_tpu|optax|sklearn)(\.|\s|$)",
+    re.M)
 
 
 def test_sources_never_import_jax():
     """No source of the port, nor chip_smoke.py, imports jax, the JAX
-    package or bench (``advntr_tpu_torch`` itself passes the pattern)."""
+    package, bench, optax or sklearn (``advntr_tpu_torch`` itself passes
+    the pattern)."""
     sources = [p for p in PKG.rglob("*.py")
                if "build" not in p.relative_to(PKG).parts]
     assert len(sources) > 30
     names = {p.relative_to(PKG).as_posix() for p in sources}
     assert {"ops/viterbi.py", "ops/posterior.py", "ops/baum_welch.py",
-            "engine/analytics.py", "engine/finder.py"} <= names
+            "engine/analytics.py", "engine/finder.py",
+            "engine/deep_recruitment.py", "engine/training.py",
+            "models/hmm_json.py"} <= names
     sources.append(REPO / "chip_smoke.py")
     offenders = [(str(p), m.group(0).strip()) for p in sources
                  for m in FORBIDDEN_IMPORT.finditer(p.read_text())]
     assert offenders == []
     assert FORBIDDEN_IMPORT.search("from advntr_tpu.dna import encode\n")
     assert FORBIDDEN_IMPORT.search("    import bench\n")
+    assert FORBIDDEN_IMPORT.search("    from sklearn.linear_model import "
+                                   "LogisticRegression\n")
+    assert FORBIDDEN_IMPORT.search("    import optax\n")
     assert not FORBIDDEN_IMPORT.search("from advntr_tpu_torch import dna\n")
 
 

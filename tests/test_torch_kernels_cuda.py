@@ -718,3 +718,149 @@ def test_posterior_and_baum_welch_on_card_equal_cpu(cuda):
             np.testing.assert_allclose(outs[1][k].cpu().numpy(), v.numpy(),
                                        rtol=1e-4, atol=1e-5,
                                        err_msg=f"{name} {k}")
+
+
+# ---- model management: the DNN gate, addmodel, trained-HMM models ----------
+
+def test_dnn_gate_on_card_equals_cpu(cuda):
+    """The gate's embeddings on the card equal the CPU's bit for bit; its
+    predictions agree within 1e-6 with equal decisions; three epochs of
+    training on the card from parameters carried from the CPU end within
+    atol 1e-4 of the CPU's, for both widths."""
+    from advntr_tpu_torch.engine import deep_recruitment as dr
+    rng = random.Random(31)
+    reads = ["".join(rng.choice("ACGTN") for _ in range(rng.randint(1, 150)))
+             for _ in range(60)] + [rand_seq(40 + i, 150) for i in range(60)]
+    batch, lengths = dna.pad_batch([dna.encode(s) for s in reads], multiple=8)
+    cpu = torch.device("cpu")
+    emb = dr.embed_batch(batch, lengths, cpu)
+    card = dr.embed_batch(batch, lengths, cuda)
+    assert card.is_cuda and torch.equal(card.cpu(), emb)
+    labels = np.array([i % 2 for i in range(len(reads))])
+    for second in (0, 50):
+        start = dr.init_params(second_layer=second,
+                               generator=torch.Generator().manual_seed(3))
+        carried = start.to_numpy()
+        p_host = dr.predict(start, emb)
+        p_card = dr.predict(dr.RecruitmentMLP.from_numpy(carried, cuda),
+                            card).cpu()
+        torch.testing.assert_close(p_card, p_host, rtol=0, atol=1e-6)
+        assert torch.equal(p_card[:, 0] > p_card[:, 1],
+                           p_host[:, 0] > p_host[:, 1])
+        trained = {}
+        orig = dr.init_params
+        dr.init_params = lambda first_layer=100, second_layer=0, \
+            generator=None: dr.RecruitmentMLP.from_numpy(carried)
+        try:
+            for dev, x in ((cpu, emb), (cuda, card)):
+                trained[dev.type] = dr.train(
+                    x, labels, epochs=3, second_layer=second,
+                    device=dev).to_numpy()
+        finally:
+            dr.init_params = orig
+        for k, v in trained["cpu"].items():
+            np.testing.assert_allclose(trained["cuda"][k], v, rtol=0,
+                                       atol=1e-4, err_msg=k)
+
+
+def test_dense_fallback_on_card_equals_cpu(cuda):
+    """An imported topology the structured extractor refuses: the dense
+    fallback on the card gives the CPU's statistics and paths, logp
+    within rtol 1e-4 / atol 1e-2, with its rows in chunks."""
+    from advntr_tpu_torch.engine import device_analytics as da
+    from advntr_tpu_torch.engine.finder import LocusModelCache
+    from advntr_tpu_torch.models.compiler import compile_graph
+    from advntr_tpu_torch.synthetic import (build_cstb_locus, encode_reads,
+                                            refused_topology,
+                                            simulate_cstb_reads)
+    graph, _, left, right, pattern = build_cstb_locus(60)
+    g = refused_topology(graph)
+    art = compile_graph(g)
+    reads = simulate_cstb_reads(left, pattern, right, 60, 40)
+    reads[2] = reads[2][:1]
+    batch, lengths = encode_reads(reads, 64)
+    outs = []
+    for dev in (torch.device("cpu"), cuda):
+        lm = LocusModelCache(device=dev)._build_imported(g, art)
+        assert lm.model is None and lm.dense.log_T.device.type == dev.type
+        n = lm.dense.n_states
+        outs.append(da.read_stats_dense(
+            lm.dense, torch.as_tensor(batch, device=dev),
+            torch.as_tensor(lengths, device=dev), return_path=True,
+            chunk_bytes=16 * 4 * n * n))
+    want, got = outs
+    torch.testing.assert_close(got["logp"].cpu(), want["logp"], rtol=1e-4,
+                               atol=1e-2)
+    for k in want:
+        if k != "logp":
+            assert torch.equal(got[k].cpu(), want[k]), k
+
+
+def test_addmodel_threshold_on_card_equals_cpu(cuda, tmp_path):
+    """``train_classifier_threshold`` on a small chromosome with planted
+    decoys: the kernels on the card and the twins on the CPU score the
+    same reads within rtol 1e-4 / atol 1e-2 and fit the same threshold."""
+    from advntr_tpu_torch.engine import training
+    from advntr_tpu_torch.io.fasta import load_chromosome
+    from advntr_tpu_torch.models.reference_vntr import ReferenceVNTR
+    from advntr_tpu_torch.synthetic import write_addmodel_reference
+    fa, chrom, start, end, pattern = write_addmodel_reference(
+        str(tmp_path), length=200_000, copies=6, fragments=3)
+    seq = load_chromosome(fa, chrom)
+    fits = []
+    orig = training.find_recruitment_score_threshold
+
+    def record(true, false):
+        fits.append((true, false))
+        return orig(true, false)
+
+    training.find_recruitment_score_threshold = record
+    try:
+        scaled = []
+        for dev in (cuda, torch.device("cpu")):
+            ref = ReferenceVNTR(1, pattern, start, chrom, None, None,
+                                int((end - start) / len(pattern) + 5), seq)
+            ref.init_from_vntrseek_data()
+            n0 = dict(_kernels.LAUNCHES)
+            scaled.append(training.train_classifier_threshold(
+                ref, seq, 100, device=dev))
+            if dev.type == "cuda":
+                assert _kernels.LAUNCHES["forward"] > n0["forward"]
+    finally:
+        training.find_recruitment_score_threshold = orig
+    assert scaled[0] == scaled[1] != 0
+    (true_c, false_c), (true_h, false_h) = fits
+    assert len(false_c) == len(false_h) > 0
+    np.testing.assert_allclose(true_c, true_h, rtol=1e-4, atol=1e-2)
+    np.testing.assert_allclose(false_c, false_h, rtol=1e-4, atol=1e-2)
+
+
+@pytest.mark.parametrize("refused", [False, True])
+def test_trained_hmm_genotype_on_card_equals_cpu(cuda, tmp_path, refused):
+    """``genotype`` of the CSTB 2/5 fixture with ``trained_hmms_dir``
+    (structured, or a refused topology through the dense fallback): the
+    same text on the card and on the CPU."""
+    import dataclasses
+    import io
+    from advntr_tpu_torch.config import Config
+    from advntr_tpu_torch.engine.analyzer import GenomeAnalyzer
+    from advntr_tpu_torch.models.db import load_unique_vntrs_data
+    from advntr_tpu_torch.synthetic import (write_cstb_sample,
+                                            write_trained_hmms)
+    db, bam = write_cstb_sample(str(tmp_path), coverage=20)
+    config = dataclasses.replace(
+        Config(), trained_hmms_dir=write_trained_hmms(
+            str(tmp_path), db, 100, refused=refused))
+    refs = load_unique_vntrs_data(db)
+    texts = []
+    for dev in ("cuda", "cpu"):
+        (tmp_path / dev).mkdir()
+        out = io.StringIO()
+        analyzer = GenomeAnalyzer(refs, [r.id for r in refs],
+                                  str(tmp_path / dev) + "/", "text", False,
+                                  None, bam, config=config, out=out,
+                                  device=dev)
+        analyzer.find_repeat_counts_from_alignment_file(bam)
+        texts.append(out.getvalue())
+    assert texts[0] == texts[1]
+    assert texts[0].split() == ["301645", "2/5"]
