@@ -47,6 +47,7 @@ from advntr_tpu_torch.engine.finder import (GenotypeResult, HostStepError,
                                             host_step)
 from advntr_tpu_torch.engine.recruitment import (build_recruitment_filter,
                                                  filter_reads)
+from advntr_tpu_torch.parallel import mesh as pmesh
 
 
 class GenomeAnalyzer:
@@ -70,6 +71,7 @@ class GenomeAnalyzer:
             device=self.device, workers=max(0, config.io_threads - 1),
             bank_dir=bank_dir)
         self.checkpoint_suffix = ""
+        self._panel_mesh_cache = {}
         self.vntr_finder = {}
         for ref_vntr in ref_vntrs:
             if ref_vntr.id in target_vntr_ids:
@@ -462,7 +464,8 @@ class GenomeAnalyzer:
         for members in groups.values():
             for c0 in range(0, len(members), group_size):
                 chunk = members[c0:c0 + group_size]
-                stats = self._dispatch_group(chunk, prepped, vids)
+                stats = self._dispatch_group(chunk, prepped, vids,
+                                             group_size)
                 self._collect_group(chunk, prepped, stats, read_length,
                                     results, accuracy_filter,
                                     average_coverage)
@@ -471,7 +474,7 @@ class GenomeAnalyzer:
             ckpt_path, [vid for vid in vids if vid not in prepped], results)
         return results
 
-    def _dispatch_group(self, chunk, prepped, wave):
+    def _dispatch_group(self, chunk, prepped, wave, group_size: int):
         """Pad the group's reads to one (G, B, L) batch and score it.
 
         Shapes follow the reference's buckets (analyzer.py:567-577): L pads
@@ -479,7 +482,10 @@ class GenomeAnalyzer:
         floors at 512 rows in panels of more than 16 loci.  The reference
         also repeats a short chunk's last locus up to G, to keep one
         executable per bucket; with no compiled executables here the
-        repeats would only be discarded, so a short chunk scores as is."""
+        repeats would only be discarded, so a short chunk scores as is.
+        Where more than one device of the analyzer's type is visible, the
+        group is split over a (loci, reads) mesh of them
+        (parallel/mesh.py, reference analyzer.py:592-623)."""
         max_len = max(max(len(r) for r in prepped[vid][3]) for vid in chunk)
         L_pad = ((max_len + 31) // 32) * 32
         max_rows = max(len(prepped[vid][3]) for vid in chunk)
@@ -495,7 +501,21 @@ class GenomeAnalyzer:
         seqs = torch.as_tensor(np.stack(batches), device=self.device)
         lengths = torch.as_tensor(np.stack(lens), device=self.device)
         models = [prepped[vid][1].model for vid in chunk]
+        mesh = self._get_panel_mesh(group_size, B_pad)
+        if mesh is not None:
+            return pmesh.sharded_grouped_read_stats(mesh, models, seqs,
+                                                    lengths)
         return da.read_stats_grouped(models, seqs, lengths)
+
+    def _get_panel_mesh(self, group_size: int, batch: int):
+        """(loci, reads) device mesh for the grouped dispatch, or None when
+        one device of the analyzer's type is visible (cached per shape;
+        reference analyzer.py:625-635)."""
+        key = (group_size, batch)
+        if key not in self._panel_mesh_cache:
+            self._panel_mesh_cache[key] = pmesh.panel_mesh(
+                group_size, batch, device_type=self.device.type)
+        return self._panel_mesh_cache[key]
 
     def _collect_group(self, chunk, prepped, stats, read_length, results,
                        accuracy_filter, average_coverage):

@@ -235,3 +235,14 @@ class StructModelStack:
     @property
     def device(self) -> torch.device:
         return self.pos.device
+
+    def to(self, device) -> "StructModelStack":
+        """These tables on ``device``: one device-to-device copy a table,
+        none where they are there already.  ``models`` stay where they
+        are, so the CPU twins take a stack only on its models' device."""
+        device = torch.device(device)
+        if self.device == device:
+            return self
+        moved = {name: getattr(self, name).to(device)
+                 for name in STACKED + ("suffix_last", "r_unit")}
+        return dataclasses.replace(self, **moved)

@@ -139,6 +139,18 @@ def write_cstb_sample(workdir: str, read_length: int = 100,
     return db, bam
 
 
+def cstb_chromosome():
+    """The CSTB locus of ``write_cstb_sample`` on a chromosome of its own:
+    its 300-base flanks around its three units.  Returns (ReferenceVNTR,
+    chromosome sequence), the inputs of a mutated-reference sweep."""
+    left, right = rand_seq(1, 300), rand_seq(2, 300)
+    ref = ReferenceVNTR(301645, CSTB_PATTERN, len(left), "chr21", "CSTB",
+                        "Promoter", 3)
+    ref.repeat_segments = [CSTB_PATTERN] * 3
+    ref.left_flanking_region, ref.right_flanking_region = left, right
+    return ref, left + CSTB_PATTERN * 3 + right
+
+
 def write_diploid_bam(bam: str, ref, copies_a: int, copies_b: int,
                       read_length: int, coverage: float,
                       ref_length: int = 100000) -> None:

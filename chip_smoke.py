@@ -156,10 +156,28 @@ turns, without holding them to anything.
    names, a warm ``genotype`` with no host model build giving phase 5's
    text, then ``delmodel`` of one locus and ``viewmodel`` listing 23.
 
+10. scale-out and the offline sweep (the fifth path): the group shape
+   of phase 3 through ``parallel.mesh.sharded_grouped_read_stats`` over
+   explicit splits of this one card (2 x cuda:0, loci 2 x reads 1, and
+   16 x cuda:0, loci 8 x reads 2), and over every card where more than
+   one is visible: bit-identical to one unsharded launch, one launch of
+   each kernel a shard, timed against it (with the copy of a shard's
+   tables to a second card, where there is one); phase 5's 24-locus
+   panel through ``parallel.distributed.run_sharded_panel`` in one OS
+   process and in two on this card (a guarded worker script; the models
+   built in each process as the CLI builds them, and in two processes
+   also by one spawned model-build worker each): every run merges to the one
+   process's records and to phase 5's genotypes, with its wall time and
+   each process's start and run seconds; ``mutated_reference_sweep``
+   on the CSTB locus at 150 bp, coverage 30, counts 2, 5 and 9 with the
+   finder on the card: every row (k, k), the rows equal to the same
+   sweep with a CPU finder, its wall time and launches.
+
 The Illumina path (phase 5), the long-read path (phase 7), the
-frameshift and update path (phase 8) and model management (phase 9) are
-each driven with every launch count set to 0 just before and read just
-after.
+frameshift and update path (phase 8), model management (phase 9) and
+each path of phase 10 are each driven with every launch count set to 0
+just before and read just after (the sharded panel's processes start
+from 0 and report their own).
 The last three lines are the nvidia-smi line, one JSON object of the
 kernels, and {"ok": true, "device": {...}}.
 """
@@ -169,6 +187,7 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -2180,6 +2199,293 @@ def phase_model_management(dev, kernels, panel_text):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---- scale-out and the mutated-reference sweep (phase 10) -------------------
+
+# the explicit splits of the group shape over one card: loci 2 x reads 1,
+# and loci 8 x reads 2 (GROUP 8, rows 512)
+ONE_CARD_SPLITS = (2, 16)
+# the sweep at full width: the CSTB locus, 150 bp reads, coverage 30
+SWEEP_COUNTS = (2, 5, 9)
+
+# one process of a sharded panel: this process's loci, its launch counts,
+# its start (imports and the device's context) and run seconds; process 0
+# also the merged records.  The body runs under the __main__ guard: with
+# io_threads 2 the model cache's build pool spawns, and each spawned
+# child imports this file again as __mp_main__.
+SHARDED_PANEL_WORKER = '''
+import json, os, sys, time
+
+
+def main():
+    t0 = time.perf_counter()
+    repo, db, bam, workdir, pid, nproc, device, io_threads = sys.argv[1:9]
+    sys.path.insert(0, repo)
+    import torch
+    from advntr_tpu_torch.config import Config
+    from advntr_tpu_torch.models.db import load_unique_vntrs_data
+    from advntr_tpu_torch.ops import _kernels
+    from advntr_tpu_torch.parallel.distributed import run_sharded_panel
+    if device == "cuda":
+        torch.cuda.init()
+    pid, nproc = int(pid), int(nproc)
+    refs = load_unique_vntrs_data(db)
+    ids = [r.id for r in refs]
+    t1 = time.perf_counter()
+    _kernels.reset_launches()
+    merged = run_sharded_panel(refs, ids, bam, workdir,
+                               Config(io_threads=int(io_threads)),
+                               process_id=pid, num_processes=nproc,
+                               device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    with open(os.path.join(workdir, "worker_%d.json" % pid), "w") as fh:
+        json.dump({"launches": _kernels.LAUNCHES, "merged": merged,
+                   "start_s": t1 - t0, "run_s": t2 - t1}, fh)
+
+
+if __name__ == "__main__":
+    main()
+'''
+
+
+def sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def phase_sharded_dispatch(dev, kernels, group):
+    """The group shape through ``sharded_grouped_read_stats``: explicit
+    splits over this one card, and over every card where more than one is
+    visible; each bit-identical to one unsharded launch, with one launch
+    of each kernel a shard, timed against it."""
+    from advntr_tpu_torch.engine import device_analytics as da
+    from advntr_tpu_torch.parallel import mesh as pmesh
+    stack, seqs, lens = group
+    models, b_pad, card = stack.models, seqs.shape[1], seqs.device
+    whole = da.read_stats_grouped(models, seqs, lens)
+    sync(dev)
+    splits = {f"{n} x {card}": [card] * n for n in ONE_CARD_SPLITS}
+    cards = pmesh.visible_devices(dev.type)
+    if len(cards) > 1:
+        splits[f"{len(cards)} cards"] = cards
+    out = {"unsharded_ms": time_ms(
+        lambda: da.read_stats_grouped(models, seqs, lens))}
+    for name, devices in splits.items():
+        m = pmesh.panel_mesh(GROUP, b_pad, devices=devices)
+        check(m is not None, f"no mesh for {name} at G {GROUP}, B {b_pad}")
+        kernels.reset_launches()
+        got = pmesh.sharded_grouped_read_stats(m, models, seqs, lens)
+        sync(dev)
+        launches = dict(kernels.LAUNCHES)
+        shards = m.n_loci * m.n_reads
+        check(dev.type != "cuda"
+              or launches["forward"] == launches["backward"] == shards,
+              f"{name}: launches {launches}, one of each kernel a shard "
+              f"is {shards}")
+        check(set(got) == set(whole)
+              and all(torch.equal(got[k], whole[k]) for k in whole),
+              f"{name}: sharded statistics differ from one launch")
+        ms = time_ms(lambda: pmesh.sharded_grouped_read_stats(
+            m, models, seqs, lens))
+        out[name] = {"mesh": [m.n_loci, m.n_reads], "launches": launches,
+                     "ms": ms}
+        where = ("an explicit split over one card"
+                 if len(set(devices)) == 1 else "one shard a card")
+        log(f"sharded dispatch, {name} (loci {m.n_loci} x reads "
+            f"{m.n_reads}, {where}): "
+            f"bit-identical to one launch, {shards} launches of each "
+            f"kernel, {ms:.3f} ms against {out['unsharded_ms']:.3f} ms "
+            "unsharded")
+    out["unsharded_ms_after"] = time_ms(
+        lambda: da.read_stats_grouped(models, seqs, lens))
+    if len(cards) > 1:
+        from advntr_tpu_torch.ops.struct_model import TorchStructModel
+        part = TorchStructModel.stack(models[:GROUP // 2])
+
+        def copy():
+            part.to(cards[1])
+            torch.cuda.synchronize(cards[1])
+
+        out["table_copy_ms"] = statistics.median(
+            _wall_ms(copy) for _ in range(10))
+        log(f"sharded dispatch: {GROUP // 2} loci's tables "
+            f"{card} -> {cards[1]} {out['table_copy_ms']:.4f} ms")
+    else:
+        out["table_copy_ms"] = None
+        log("sharded dispatch: one card visible, so no table copy between "
+            "cards and no split over cards: not measured")
+    return out
+
+
+def _wall_ms(fn) -> float:
+    t0 = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def run_sharded_panel_processes(dev, db, bam, workdir, nproc, io_threads,
+                                timeout=300):
+    """``run_sharded_panel`` in ``nproc`` OS processes over one panel:
+    {"merged": process 0's records, "launches": summed over the
+    processes, "wall_s": the whole run, "start_s" and "run_s": each
+    process's own}."""
+    os.makedirs(workdir)
+    script = os.path.join(workdir, "worker.py")
+    with open(script, "w") as fh:
+        fh.write(SHARDED_PANEL_WORKER)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    # each process leads a process group of its own, so that its build
+    # pool goes with it if it has to be stopped
+    procs = [subprocess.Popen(
+        [sys.executable, script, repo, db, bam, workdir, str(p), str(nproc),
+         dev.type, str(io_threads)], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, start_new_session=True)
+        for p in range(nproc)]
+    try:
+        for p in procs:
+            _, err = p.communicate(timeout=timeout)
+            check(p.returncode == 0,
+                  f"sharded panel process failed ({p.returncode}): "
+                  f"{err[-3000:]}")
+    finally:
+        for p in procs:
+            try:
+                os.killpg(p.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            p.wait()
+    wall = time.perf_counter() - t0
+    reports = []
+    for p in range(nproc):
+        with open(os.path.join(workdir, f"worker_{p}.json")) as fh:
+            reports.append(json.load(fh))
+    return {"merged": reports[0]["merged"], "wall_s": wall,
+            "launches": {k: sum(r["launches"][k] for r in reports)
+                         for k in reports[0]["launches"]},
+            "start_s": [r["start_s"] for r in reports],
+            "run_s": [r["run_s"] for r in reports]}
+
+
+def record_text(rec) -> str:
+    """A merged record as the text output prints its genotype."""
+    if rec["error"]:
+        return "Error"
+    if rec["copy_numbers"] is None:
+        return "None"
+    return "/".join(str(c) for c in sorted(rec["copy_numbers"]))
+
+
+# the sharded panel's runs: (processes, io_threads); io_threads 1 builds
+# each locus model in the process, as the CLI does, 2 in one spawned
+# worker a process, which is what needs the worker's __main__ guard
+PANEL_RUNS = ((1, 1), (2, 1), (2, 2))
+
+
+def phase_sharded_panel(dev, panel_text):
+    """Phase 5's 24-locus panel through ``run_sharded_panel`` in one OS
+    process and in two on this card, the models built in each process and
+    in a spawned build worker: every run merges to the same records and to
+    phase 5's genotypes."""
+    from advntr_tpu_torch.synthetic import write_panel
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
+    try:
+        db, bam, _ = write_panel(tmp, n_loci=PANEL_LOCI, read_length=150,
+                                 coverage=30)
+        runs = {f"{n}p{io}t": run_sharded_panel_processes(
+            dev, db, bam, os.path.join(tmp, f"p{n}t{io}"), n, io)
+            for n, io in PANEL_RUNS}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    one = runs["1p1t"]["merged"]
+    lines = panel_text.split()
+    calls = dict(zip(lines[0::2], lines[1::2]))
+    check({vid: record_text(rec) for vid, rec in one.items()} == calls,
+          "the sharded panel's genotypes differ from phase 5's")
+    for name, run in runs.items():
+        check(run["merged"] == one,
+              f"the panel's merged records in run {name} differ from one "
+              "process's")
+        for k in ILLUMINA_KERNELS:
+            check(dev.type != "cuda" or run["launches"][k] > 0,
+                  f"kernel {k} never launched by run {name}")
+        fmt = lambda xs: ", ".join(f"{x:.2f}" for x in xs)
+        log(f"sharded panel ({dev.type}), {name[0]} process(es), io_threads "
+            f"{name[2]}: {PANEL_LOCI} loci in {run['wall_s']:.2f} s wall; "
+            f"each process: start (imports, device context) "
+            f"{fmt(run['start_s'])} s, run {fmt(run['run_s'])} s; "
+            f"launches {run['launches']}")
+    log("sharded panel: every run's merged records equal, phase 5's "
+        "genotypes")
+    return {name: {k: v for k, v in run.items() if k != "merged"}
+            for name, run in runs.items()}
+
+
+def phase_sweep(dev, kernels):
+    """``mutated_reference_sweep`` on the card at full width, every row
+    called (k, k), and the same sweep with a CPU finder on the same seed
+    giving the same rows."""
+    from advntr_tpu_torch.config import Config
+    from advntr_tpu_torch.engine.evaluation import mutated_reference_sweep
+    from advntr_tpu_torch.engine.finder import VNTRFinder
+    from advntr_tpu_torch.synthetic import cstb_chromosome
+    ref, chrom = cstb_chromosome()
+    kw = dict(desired_counts=SWEEP_COUNTS, coverage=30, read_length=150,
+              seed=0)
+    finder = None if dev.type == "cuda" else VNTRFinder(ref, Config(),
+                                                        device=dev)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    card = mutated_reference_sweep(ref, chrom, finder=finder, **kw)
+    sync(dev)
+    secs = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    for k in ILLUMINA_KERNELS:
+        check(dev.type != "cuda" or launches[k] > 0,
+              f"kernel {k} never launched by the sweep")
+    for row in card["rows"]:
+        check(row["called"] == (row["desired"], row["desired"]),
+              f"sweep called {row}")
+    t0 = time.perf_counter()
+    cpu = mutated_reference_sweep(
+        ref, chrom, finder=VNTRFinder(ref, Config(), device="cpu"), **kw)
+    cpu_secs = time.perf_counter() - t0
+    check(card["rows"] == cpu["rows"],
+          f"sweep rows differ: {card['rows']} against the CPU's "
+          f"{cpu['rows']}")
+    log(f"sweep ({dev.type}): CSTB at 150 bp, coverage 30, counts "
+        f"{list(SWEEP_COUNTS)}: every row (k, k), equal to the CPU "
+        f"finder's rows; {secs:.2f} s (the CPU finder {cpu_secs:.2f} s); "
+        f"launches {launches}; rows {card['rows']}")
+    return {"s": secs, "cpu_s": cpu_secs, "launches": launches,
+            "rows": card["rows"]}
+
+
+def scale_launches(scale, kernel: str) -> dict:
+    """A kernel's launches on phase 10's paths, for the kernels line."""
+    split = f"{ONE_CARD_SPLITS[-1]} x "
+    return {"sharded_dispatch_launches": next(
+                v["launches"][kernel] for k, v in scale["dispatch"].items()
+                if k.startswith(split)),
+            "sharded_panel_launches":
+                scale["panel"]["2p1t"]["launches"][kernel],
+            "sweep_launches": scale["sweep"]["launches"][kernel]}
+
+
+def phase_scale_out(dev, kernels, group, panel_text):
+    """Phase 10: the sharded dispatch, the sharded panel and the sweep,
+    each driven with every launch count set to 0 just before it and read
+    just after."""
+    t0 = time.perf_counter()
+    out = {"dispatch": phase_sharded_dispatch(dev, kernels, group),
+           "panel": phase_sharded_panel(dev, panel_text),
+           "sweep": phase_sweep(dev, kernels)}
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"phase 10: {out['phase_s']:.1f} s")
+    return out
+
+
 def run_cli(argv) -> tuple[str, float]:
     from advntr_tpu_torch import cli
     t0 = time.perf_counter()
@@ -2333,7 +2639,6 @@ def main() -> None:
     if builds:
         phase_forward_sources(_kernels, builds, variants, m, seqs, lens)
     walk = phase_walk(_kernels, m, seqs, lens, group, sources)
-    del group
     phase_recruitment(dev)
     launches, warm_launches, panel_text = phase_end_to_end(_kernels,
                                                            profile)
@@ -2348,6 +2653,8 @@ def main() -> None:
     pacbio_launches = phase_pacbio_cli(_kernels)
     a10 = phase_update_frameshift(dev, _kernels)
     models = phase_model_management(dev, _kernels, panel_text)
+    scale = phase_scale_out(dev, _kernels, group, panel_text)
+    del group
     tail = None
     if long_tail:
         tail = phase_long_reads(dev, _kernels, None, TAIL_L, TAIL_B,
@@ -2367,6 +2674,7 @@ def main() -> None:
          "update_frameshift_launches": a10["launches"]["forward"],
          "model_management_launches": models["launches"]["forward"],
          "addmodel_launches": models["addmodel"]["launches"]["forward"],
+         **scale_launches(scale, "forward"),
          "group_ms": ms["group"]["B1"],
          "group_bound_ms": ms["group"]["B1_bound"]},
         {"name": "viterbi_backward", "route": "cuda",
@@ -2381,6 +2689,7 @@ def main() -> None:
          "update_frameshift_path_decodes": a10["path_decodes"],
          "model_management_launches": models["launches"]["backward"],
          "addmodel_launches": models["addmodel"]["launches"]["backward"],
+         **scale_launches(scale, "backward"),
          "wrapper_ms": ms["B2"][0], "path_ms": walk["cell"]["ms_path"],
          "chain_floor_ms": walk["cell"]["floor_ms"],
          "windows_per_read": walk["cell"]["windows_mean"],
@@ -2456,6 +2765,8 @@ def main() -> None:
     log("model management (plain PyTorch beside B1/B2): " + json.dumps(
         {k: models[k] for k in ("gate", "addmodel", "trained",
                                 "buildbank")}))
+    log("scale-out and sweep (B1/B2 through the mesh, the processes and "
+        "the finder): " + json.dumps(scale))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -51,7 +51,11 @@ OWN_PKG = Path(advntr_tpu_torch.__file__).parent
 #   docstring says so; everything before that function is the original's;
 # - models/reference_vntr.py has none in its text: its two seams (the numpy
 #   Viterbi and the segment splitter) are modules of the port's own, held
-#   to their originals by test_seam_functions_equal_their_originals.
+#   to their originals by test_seam_functions_equal_their_originals;
+# - models/pattern_clustering.py: ``get_pattern_clusters`` fits scipy's
+#   complete linkage and cuts it as sklearn does, where the original fits
+#   sklearn; everything before that function is the original's, and
+#   tests/test_torch_offline.py holds the clusters to sklearn's.
 INTENDED = {
     "dna.py": None, "config.py": None,
     "utils/quality.py": None,
@@ -65,6 +69,11 @@ INTENDED = {
     "engine/genotype.py": None, "engine/coverage_bias.py": None,
     "engine/analytics.py": None,
     "engine/simulate.py": None, "engine/haplotyper.py": None,
+    "engine/reference_editor.py": None, "engine/read_screens.py": None,
+    "engine/evaluation.py": None,
+    "models/annotation.py": None, "models/db_build.py": None,
+    "models/homology.py": None,
+    "models/pattern_clustering.py": "def get_pattern_clusters",
 }
 IMPORT_LINE = re.compile(r"^(\s*(?:from|import)\s+)advntr_tpu_torch(?=[\s.])",
                          re.M)
@@ -79,8 +88,13 @@ def test_copy_text_equals_original(module):
         # compare what precedes the rewritten function, less the module
         # docstring, and hold the rewrite to what it is said to be
         tail = copy.split(cut)[1]
-        assert "torch.cuda.synchronize()" in tail and "jax" not in copy
-        assert "jax.profiler" in original.split(cut)[1]
+        if module == "utils/profiler.py":
+            assert "torch.cuda.synchronize()" in tail and "jax" not in copy
+            assert "jax.profiler" in original.split(cut)[1]
+        else:
+            sklearn = re.compile(r"^\s*from sklearn", re.M)
+            assert sklearn.search(original.split(cut)[1])
+            assert not sklearn.search(copy) and "linkage(" in tail
         original, copy = (text.split(cut)[0].split('"""\n', 1)[1]
                           for text in (original, copy))
     diff = [ln for ln in difflib.unified_diff(original.splitlines(),
@@ -118,6 +132,40 @@ def test_seam_functions_equal_their_originals():
         assert inspect.getsource(own) == inspect.getsource(ref), own.__name__
     assert viterbi.NEG32 == jviterbi.NEG32
     assert viterbi.NEG32.dtype == jviterbi.NEG32.dtype
+
+
+def test_scale_out_equals_original():
+    """parallel/distributed.py's ``shard_loci`` and ``gather_results`` are
+    verbatim; ``run_sharded_panel`` adds only ``device``; and
+    parallel/mesh.py's ``panel_mesh`` factors every device count as the
+    original factors the jax devices (tests/test_torch_mesh.py and
+    test_torch_distributed.py run both end to end)."""
+    import inspect
+
+    import jax
+    import torch
+
+    from advntr_tpu.parallel import distributed as jdist
+    from advntr_tpu.parallel import mesh as jmesh
+    from advntr_tpu_torch.parallel import distributed, mesh
+    for name in ("shard_loci", "gather_results"):
+        assert inspect.getsource(getattr(distributed, name)) == \
+            inspect.getsource(getattr(jdist, name)), name
+    own = inspect.signature(distributed.run_sharded_panel).parameters
+    ref = inspect.signature(jdist.run_sharded_panel).parameters
+    assert list(own) == list(ref) + ["device"]
+    assert own["device"].default == "cuda"
+    for n in range(1, 9):
+        for group_size in (1, 2, 3, 4, 6, 8, 16):
+            for batch in (1, 2, 8, 12, 512):
+                got = mesh.panel_mesh(group_size, batch,
+                                      devices=[torch.device("cpu")] * n)
+                want = jmesh.panel_mesh(group_size, batch,
+                                        devices=jax.devices()[:n])
+                assert (got is None) == (want is None)
+                if got is not None:
+                    assert (got.n_loci, got.n_reads) == \
+                        (want.shape["loci"], want.shape["reads"])
 
 
 def test_clean_neg_equals_original():

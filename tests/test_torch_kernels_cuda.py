@@ -864,3 +864,57 @@ def test_trained_hmm_genotype_on_card_equals_cpu(cuda, tmp_path, refused):
         texts.append(out.getvalue())
     assert texts[0] == texts[1]
     assert texts[0].split() == ["301645", "2/5"]
+
+
+@pytest.mark.parametrize("n_devices,expect", [(2, (2, 1)), (8, (4, 2))])
+def test_sharded_dispatch_on_card_equals_one_launch(cuda, n_devices,
+                                                    expect):
+    """A group of 4 same-shape loci split over explicit meshes of this
+    card (and of every card, where more than one is visible): the
+    statistics equal one unsharded launch bit for bit, one launch of each
+    kernel a shard."""
+    from advntr_tpu_torch.engine import device_analytics as da
+    from advntr_tpu_torch.parallel import mesh
+    cases = [(["CAGCAG", "CAGCAG", "CAACAG"], "ACGTTGCA", "TTACGGAT", 3),
+             (["TTGACC", "TTGACC", "TTGTCC"], "GGATCCAT", "CATGATCG", 3),
+             (["ACCGTA", "ACCGTA", "ACCGTA"], "TGCATGCA", "GATTACAG", 3),
+             (["GATCGA", "GATCGA", "GTTCGA"], "CCGTAGCA", "ATGCCGTA", 3)]
+    models = [TorchStructModel.from_payload(*locus_model(*c), cuda)
+              for c in cases]
+    batches = [_batch(c, 64, seed=g) for g, c in enumerate(cases)]
+    L = max(b.shape[1] for b, _ in batches)
+    seqs = torch.stack([torch.nn.functional.pad(b, (0, L - b.shape[1]))
+                        for b, _ in batches]).to(cuda)
+    lens = torch.stack([n for _, n in batches]).to(cuda)
+    whole = da.read_stats_grouped(models, seqs, lens)
+    meshes = [mesh.panel_mesh(4, 64, devices=[cuda] * n_devices)]
+    if torch.cuda.device_count() > 1:
+        meshes.append(mesh.panel_mesh(4, 64))
+    assert (meshes[0].n_loci, meshes[0].n_reads) == expect
+    for m in meshes:
+        _kernels.reset_launches()
+        got = mesh.sharded_grouped_read_stats(m, models, seqs, lens)
+        torch.cuda.synchronize()
+        shards = m.n_loci * m.n_reads
+        assert _kernels.LAUNCHES["forward"] == shards
+        assert _kernels.LAUNCHES["backward"] == shards
+        for k, v in whole.items():
+            assert got[k].device == seqs.device and torch.equal(got[k], v), k
+
+
+def test_mutated_reference_sweep_on_card_equals_cpu(cuda):
+    """The sweep with its default finder (on the card) gives the rows of
+    the same sweep with a CPU finder, through B1 and B2."""
+    from advntr_tpu_torch.config import Config
+    from advntr_tpu_torch.engine.evaluation import mutated_reference_sweep
+    from advntr_tpu_torch.engine.finder import VNTRFinder
+    from advntr_tpu_torch.synthetic import cstb_chromosome
+    ref, chrom = cstb_chromosome()
+    kw = dict(desired_counts=[2, 4], coverage=20, read_length=100, seed=3)
+    _kernels.reset_launches()
+    card = mutated_reference_sweep(ref, chrom, **kw)
+    assert _kernels.LAUNCHES["forward"] > 0
+    assert _kernels.LAUNCHES["backward"] > 0
+    cpu = mutated_reference_sweep(
+        ref, chrom, finder=VNTRFinder(ref, Config(), device="cpu"), **kw)
+    assert card["rows"] == cpu["rows"]
