@@ -9,8 +9,10 @@ Counterpart of advntr_tpu/engine/analyzer.py (genotype paths).  Illumina:
 2. loci run in waves: per locus, an indexed BAM fetch of mapped candidates
    plus the recruited unmapped reads, prepared on the host;
 3. same-shape loci score as groups of G on the device, one launch of each
-   kernel per group, and each finished group appends to a JSONL
-   checkpoint, so an interrupted run resumes where it stopped.
+   kernel per group (under ``ADVNTR_TPU_KERNEL=struct``, one sequence of
+   the structured decoder's launches a column per group), and each
+   finished group appends to a JSONL checkpoint, so an interrupted run
+   resumes where it stopped.
 
 Long reads are scored one locus at a time (each locus's model is as wide
 as its longest read window): recruitment by flank keywords, then
@@ -47,6 +49,7 @@ from advntr_tpu_torch.engine.finder import (GenotypeResult, HostStepError,
                                             host_step)
 from advntr_tpu_torch.engine.recruitment import (build_recruitment_filter,
                                                  filter_reads)
+from advntr_tpu_torch.ops.viterbi_struct import StructDeviceModel
 from advntr_tpu_torch.parallel import mesh as pmesh
 
 
@@ -485,7 +488,9 @@ class GenomeAnalyzer:
         repeats would only be discarded, so a short chunk scores as is.
         Where more than one device of the analyzer's type is visible, the
         group is split over a (loci, reads) mesh of them
-        (parallel/mesh.py, reference analyzer.py:592-623)."""
+        (parallel/mesh.py, reference analyzer.py:592-623).  Models built
+        for the ``struct`` kernel score through the structured decoder
+        (reference analyzer.py:609-624)."""
         max_len = max(max(len(r) for r in prepped[vid][3]) for vid in chunk)
         L_pad = ((max_len + 31) // 32) * 32
         max_rows = max(len(prepped[vid][3]) for vid in chunk)
@@ -500,8 +505,20 @@ class GenomeAnalyzer:
             lens.append(ln)
         seqs = torch.as_tensor(np.stack(batches), device=self.device)
         lengths = torch.as_tensor(np.stack(lens), device=self.device)
-        models = [prepped[vid][1].model for vid in chunk]
+        lms = [prepped[vid][1] for vid in chunk]
         mesh = self._get_panel_mesh(group_size, B_pad)
+        if lms[0].kernel == "struct":
+            structs = [lm.struct_model() for lm in lms]
+            metas = [lm.model.art_meta for lm in lms]
+            suffix_lasts = [lm.sm.suffix_last for lm in lms]
+            if mesh is not None:
+                return pmesh.sharded_grouped_read_stats(
+                    mesh, structs, seqs, lengths, kernel="struct",
+                    metas=metas, suffix_lasts=suffix_lasts)
+            return da.read_stats_struct_grouped(
+                StructDeviceModel.stack(structs), da.stack_meta(metas), seqs,
+                lengths, torch.tensor(suffix_lasts, device=self.device))
+        models = [lm.model for lm in lms]
         if mesh is not None:
             return pmesh.sharded_grouped_read_stats(mesh, models, seqs,
                                                     lengths)

@@ -6,7 +6,11 @@ returns only O(B) scalars; ``read_stats_grouped`` scores G same-shape
 loci with one launch of each kernel.  ``read_stats_ckpt`` is the memory-safe
 path for long lattices: the checkpointed traceback, then
 ``analytics_from_path``, the plain path-walking analytics that the
-backward walk's in-kernel statistics are held against.  ``DenseModel`` and
+backward walk's in-kernel statistics are held against.  The
+``read_stats_struct*`` functions are the same analytics over the
+structured decoder of ops/viterbi_struct.py (``ADVNTR_TPU_KERNEL=struct``):
+whole reads, the checkpointed traceback, and G loci in one sequence of
+launches.  ``DenseModel`` and
 ``read_stats_dense`` are the dense fallback for an imported model whose
 topology the structured extractor refuses: Viterbi over the (n, n)
 eliminated table in plain PyTorch (the reference's is XLA, not Pallas),
@@ -25,6 +29,7 @@ from advntr_tpu_torch.models.graph import (K_MATCH, R_PREFIX, R_REPEAT,
 from advntr_tpu_torch.ops import viterbi_ckpt
 from advntr_tpu_torch.ops.viterbi import prepare_model_tensors, viterbi_batch
 from advntr_tpu_torch.ops import viterbi_fused as vf
+from advntr_tpu_torch.ops.viterbi_struct import viterbi_struct_batch
 from advntr_tpu_torch.ops.struct_model import TorchStructModel
 from advntr_tpu_torch.ops.viterbi_fused import MIN_BP_IN_REPEAT
 
@@ -58,6 +63,67 @@ def read_stats_ckpt(model, seqs, lengths, return_path: bool = False,
         origin32=origin32)
     return analytics_from_path(model.art_meta, logp, path, seqs, lengths,
                                return_path=return_path)
+
+
+def read_stats_struct(model, meta, seqs, lengths, suffix_last,
+                      return_path: bool = False) -> dict:
+    """Structured Viterbi + analytics for one locus
+    (device_analytics.py:197-205): ``model`` a ``StructDeviceModel``,
+    ``meta`` the artifact's (kind, region, exp_base, unit) vectors."""
+    logp, _, path = viterbi_struct_batch(model, seqs, lengths, suffix_last,
+                                         return_path=True)
+    return analytics_from_path(meta, logp, path, seqs, lengths,
+                               return_path=return_path)
+
+
+def read_stats_struct_ckpt(model, meta, seqs, lengths, suffix_last,
+                           return_path: bool = False,
+                           segment: int = 512) -> dict:
+    """``read_stats_struct`` through the checkpointed traceback, for
+    lattices too long for whole value planes (device_analytics.py:
+    208-219)."""
+    logp, _, path = viterbi_ckpt.viterbi_struct_checkpointed(
+        model, seqs, lengths, suffix_last, return_path=True,
+        segment=segment)
+    return analytics_from_path(meta, logp, path, seqs, lengths,
+                               return_path=return_path)
+
+
+def stack_meta(metas) -> tuple:
+    """G loci's (kind, region, exp_base, unit) vectors as four (G, n)
+    tensors, each padded to the longest with the fills of the reference's
+    state padding (finder.py:313-316); no decoded path reaches a pad."""
+    metas = [tuple(meta) for meta in metas]
+    n = max(meta[0].shape[0] for meta in metas)
+    fills = (3, 3, -1, -1)
+    return tuple(
+        torch.stack([torch.cat([meta[i], meta[i].new_full(
+            (n - meta[i].shape[0],), fills[i])]) for meta in metas])
+        for i in range(4))
+
+
+def read_stats_struct_grouped(stacked, stacked_meta, seqs, lengths,
+                              suffix_lasts, return_path: bool = False):
+    """Structured Viterbi + analytics for G same-shape loci in one
+    sequence of launches a column (device_analytics.py:260-273):
+    ``stacked`` a ``StructDeviceModel.stack``, ``stacked_meta`` four
+    (G, n) tensors (``stack_meta``); seqs (G, B, L), lengths (G, B),
+    suffix_lasts (G,).  A dict of (G, B) tensors; the analytics run once
+    over the G x B rows, each locus's states offset into its own slice of
+    the flattened metadata."""
+    G, B, L = seqs.shape
+    logp, _, path = viterbi_struct_batch(stacked, seqs, lengths,
+                                         suffix_lasts, return_path=True)
+    n = stacked_meta[0].shape[1]
+    off = torch.arange(G, device=path.device)[:, None, None] * n
+    out = analytics_from_path(
+        tuple(x.reshape(-1) for x in stacked_meta), logp.reshape(-1),
+        (path + off).reshape(G * B, L), seqs.reshape(G * B, L),
+        lengths.reshape(-1))
+    out = {k: v.reshape(G, B) for k, v in out.items()}
+    if return_path:
+        out["path"] = path
+    return out
 
 
 # the dense fallback forms one (rows, n, n) float32 temporary a column;

@@ -16,7 +16,11 @@ that the reference package wrote, without importing that package.  With
 ``Config.trained_hmms_dir`` set, a locus's model comes from its
 pomegranate-JSON checkpoint ``<vid>_<read length>.json`` where one exists:
 structured when the extractor takes its topology, else the dense fallback
-(``device_analytics.read_stats_dense``).  A per-locus DNN model
+(``device_analytics.read_stats_dense``).  ``ADVNTR_TPU_KERNEL`` chooses the
+decoder of structured models: ``pallas`` (the default), B1 and B2 on the
+card or their plain twins on the CPU; or ``struct``, the reference's
+structured decoder in plain PyTorch (ops/viterbi_struct.py) on either
+device.  A per-locus DNN model
 ``<dnn_models_dir>/<vid>.npz`` pre-screens the orientations of unmapped
 reads before they are scored (engine/deep_recruitment.py).
 """
@@ -25,6 +29,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import gzip
 import importlib
 import logging
@@ -52,12 +57,27 @@ from advntr_tpu_torch.utils.profiler import time_usage
 from advntr_tpu_torch.engine import device_analytics as da
 from advntr_tpu_torch.ops.align import anchor_probes_batch, local_align
 from advntr_tpu_torch.ops.struct_model import TorchStructModel
+from advntr_tpu_torch.ops.viterbi_struct import StructDeviceModel
 
 # batches longer than this many columns take the checkpointed (recompute)
 # traceback in segments of CKPT_SEGMENT columns: whole origin planes
 # outgrow the device there (finder.py:94-97)
 CKPT_TRACEBACK_L = 2048
 CKPT_SEGMENT = 512
+
+KERNELS = ("pallas", "struct")
+
+
+def _default_kernel() -> str:
+    """The decoder of structured models (finder.py:100-112):
+    ``ADVNTR_TPU_KERNEL``, ``pallas`` unless it says ``struct``.  Where
+    the reference defaults to ``struct`` on the CPU, the port defaults to
+    ``pallas`` on both devices: on the CPU that is B1/B2's plain twins."""
+    kernel = os.environ.get("ADVNTR_TPU_KERNEL") or "pallas"
+    if kernel not in KERNELS:
+        raise ValueError(f"ADVNTR_TPU_KERNEL={kernel!r}: use one of "
+                         f"{KERNELS}")
+    return kernel
 
 # Slim bank payloads drop the O(n^2) artifact tables; the port needs only
 # the O(n) fields, so it reads slim and full banks alike (finder.py:115-125)
@@ -125,11 +145,31 @@ def _round_up(x: int, m: int) -> int:
 class LocusModel:
     """Everything score_reads needs for one compiled locus model: the
     structured tables of the kernels or, for an imported model the
-    structured extractor refuses, the dense fallback's."""
+    structured extractor refuses, the dense fallback's.  Under the
+    ``struct`` kernel the structured decoder's tables are built from
+    ``sm`` at first use (``struct_model``)."""
     model: TorchStructModel | None     # padded device tables
     n_pad: int                     # state count padded to the bucket
     art: ModelArtifact | None = None   # unpadded host artifact (names)
     dense: da.DenseModel | None = None  # dense fallback, model is None
+    kernel: str = "pallas"         # the decoder this model was built for
+    sm: StructModel | None = None  # padded host StructModel
+    struct: StructDeviceModel | None = None   # built by struct_model()
+
+    def struct_model(self) -> StructDeviceModel | None:
+        """The structured decoder's tables on the model's device, built at
+        the first call and kept (finder.py:79-91): their dense (S, S)
+        in-edge table needs the artifact's dense ``log_T``, which a slim
+        bank payload lacks."""
+        if self.struct is None and self.sm is not None:
+            if getattr(self.art, "log_T", None) is None:
+                raise RuntimeError(
+                    "slim bank payload lacks the dense tables the struct/"
+                    "ckpt kernels need; rebuild without ADVNTR_TPU_SLIM_BANK"
+                    " for this path")
+            self.struct = StructDeviceModel.from_struct(self.sm, self.art,
+                                                        self.model.device)
+        return self.struct
 
     def visited_states(self, path) -> list[str]:
         """A decoded artifact-space path as the full visited-state names
@@ -144,7 +184,10 @@ class LocusModel:
 
     def shape_key(self) -> tuple:
         """Same-key loci share kernel shapes and score as one group (the
-        key of analyzer.py:496-501); a dense model scores alone."""
+        keys of analyzer.py:496-506); a dense model scores alone."""
+        if self.kernel == "struct":
+            return ("struct", self.sm.P, self.sm.C,
+                    self.model.struct_to_art.shape[0], self.n_pad)
         return self.model.shape_key() + (self.n_pad,)
 
 
@@ -259,12 +302,17 @@ class LocusModelCache:
 
     @staticmethod
     def _key(ref_vntr, copies, flank_size, error_rate):
-        return (ref_vntr.id, copies, flank_size, error_rate)
+        # the kernel choice is part of the key (finder.py:214-220): a
+        # LocusModel carries its kernel's tables, and ADVNTR_TPU_KERNEL may
+        # change between calls while the cache persists
+        return (ref_vntr.id, copies, flank_size, error_rate,
+                _default_kernel())
 
     def _bank_path(self, key):
         if not self.bank_dir:
             return None
-        return bank_payload_path(self.bank_dir, *key)
+        # payloads do not depend on the kernel
+        return bank_payload_path(self.bank_dir, *key[:4])
 
     def schedule(self, ref_vntr, copies: int, flank_size: int,
                  error_rate: float) -> None:
@@ -304,7 +352,7 @@ class LocusModelCache:
         if payload is None and path is not None and os.path.exists(path):
             payload = load_reference_payload(path)
         if payload is None:
-            payload, built = build_locus_payload(ref_vntr, *key[1:]), True
+            payload, built = build_locus_payload(ref_vntr, *key[1:4]), True
         if built and path is not None and not os.path.exists(path):
             os.makedirs(self.bank_dir, exist_ok=True)
             tmp = "%s.tmp.%d" % (path, os.getpid())
@@ -343,7 +391,7 @@ class LocusModelCache:
     def _upload(self, art, sm, n_pad) -> LocusModel:
         return LocusModel(
             model=TorchStructModel.from_payload(art, sm, self.device),
-            n_pad=n_pad, art=art)
+            n_pad=n_pad, art=art, kernel=_default_kernel(), sm=sm)
 
     def _build_from_payload(self, art, sm) -> LocusModel:
         return self._upload(*self._pad(art, sm))
@@ -733,13 +781,23 @@ class VNTRFinder:
         """Score a padded batch on the cache's device; numpy stats, with
         the decoded artifact-space paths (B, L) under "path" when
         ``return_paths``.  Long lattices (multi-kb long-read windows) take
-        the checkpointed traceback (finder.py:772-781); a dense model the
-        dense fallback, whatever the length (finder.py:793-796)."""
+        the checkpointed traceback (finder.py:772-781) of the model's
+        kernel; a dense model the dense fallback, whatever the length
+        (finder.py:793-796).  Where the reference decodes every long
+        lattice with its struct kernel, the port's ``pallas`` models keep
+        B1/B2's checkpointed path."""
         seqs = torch.as_tensor(batch, device=self.device)
         lens = torch.as_tensor(lengths, device=self.device)
         path = {"return_path": True} if return_paths else {}
         if lm.dense is not None:
             stats = da.read_stats_dense(lm.dense, seqs, lens, **path)
+        elif lm.kernel == "struct":
+            read_stats = da.read_stats_struct
+            if seqs.shape[1] > CKPT_TRACEBACK_L:
+                read_stats = functools.partial(da.read_stats_struct_ckpt,
+                                               segment=CKPT_SEGMENT)
+            stats = read_stats(lm.struct_model(), lm.model.art_meta, seqs,
+                               lens, lm.sm.suffix_last, **path)
         elif seqs.shape[1] > CKPT_TRACEBACK_L:
             stats = da.read_stats_ckpt(lm.model, seqs, lens,
                                        segment=CKPT_SEGMENT, **path)

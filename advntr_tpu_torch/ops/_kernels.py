@@ -21,6 +21,11 @@ cluster, each CTA a slice of the positions with its state in its own
 shared memory (``wide_layout``); ``forward`` chooses by the model's shape
 (``takes_wide_entry``).
 
+The kernels' attribute calls (``cudaFuncSetAttribute``) and launches act
+on the process's current CUDA device, so each wrapper makes its tensors'
+device current for the call (``torch.cuda.device``); tensors on two
+devices in one call raise ValueError.
+
 ``LAUNCHES`` counts the launches of each kernel, so a run can show that it
 went through the kernels.  ``BUILD_LOG`` holds what ``ptxas -v`` said of
 each kernel (registers, shared memory, spills) when this process built.
@@ -170,6 +175,15 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
+def _one_device(*tensors) -> torch.device:
+    """The one device of a call's tensors (None entries skipped)."""
+    devices = {t.device for t in tensors if t is not None}
+    _require(len(devices) == 1,
+             f"the kernel's tensors are on {len(devices)} devices: "
+             f"{sorted(map(str, devices))}")
+    return devices.pop()
+
+
 def _check_stack(s, device) -> None:
     """The kernels read the model tables by raw pointer: they must be
     contiguous, on the inputs' device, with the shapes the stack states."""
@@ -304,7 +318,7 @@ def _launch_forward(s, seqs, lengths, origin32, state, t0, planes,
     _require(seqs.dim() == 3 and seqs.shape[0] == s.G,
              f"seqs must be (G={s.G}, B, L); got {tuple(seqs.shape)}")
     G, B, L = seqs.shape
-    dev = seqs.device
+    dev = _one_device(seqs, lengths, *(state or ()))
     _require(lengths.shape == (G, B) and lengths.device == dev,
              "lengths must be (G, B) on the device of seqs")
     _check_stack(s, dev)
@@ -341,17 +355,19 @@ def _launch_forward(s, seqs, lengths, origin32, state, t0, planes,
         units = torch.empty(G * B * lay.cluster * lay.unit_words,
                             dtype=torch.int64, device=dev)
     opt = lambda x: None if x is None else _ptr(x)
-    code = lib.advntr_viterbi_forward(
-        _ptr(seqs8), _ptr(lengths32), _ptr(s.pos), _ptr(s.blk), _ptr(s.eM),
-        _ptr(s.eI), _ptr(s.eI0), _ptr(s.Wd), _ptr(s.Wu), _ptr(s.blk_idx),
-        _ptr(s.exp_base), _ptr(s.unit_last), _ptr(s.suffix_last),
-        _ptr(s.r_unit), opt(oMI), opt(oXH), _ptr(best), _ptr(bstate),
-        opt(state and state[0]), opt(state and state[1]),
-        opt(exit_ and exit_[0]), opt(exit_ and exit_[1]),
-        G, B, L, P, nb, C, s.Wd.shape[1], s.Wu.shape[1],
-        int(odt == torch.int32), mbit, int(t0), int(planes), int(wide),
-        lay.cluster, lay.slice, lay.threads, lay.smem, opt(units), LN05,
-        _stream(dev))
+    with torch.cuda.device(dev):
+        code = lib.advntr_viterbi_forward(
+            _ptr(seqs8), _ptr(lengths32), _ptr(s.pos), _ptr(s.blk),
+            _ptr(s.eM), _ptr(s.eI), _ptr(s.eI0), _ptr(s.Wd), _ptr(s.Wu),
+            _ptr(s.blk_idx), _ptr(s.exp_base), _ptr(s.unit_last),
+            _ptr(s.suffix_last), _ptr(s.r_unit), opt(oMI), opt(oXH),
+            _ptr(best), _ptr(bstate),
+            opt(state and state[0]), opt(state and state[1]),
+            opt(exit_ and exit_[0]), opt(exit_ and exit_[1]),
+            G, B, L, P, nb, C, s.Wd.shape[1], s.Wu.shape[1],
+            int(odt == torch.int32), mbit, int(t0), int(planes), int(wide),
+            lay.cluster, lay.slice, lay.threads, lay.smem, opt(units), LN05,
+            _stream(dev))
     _check(code, "viterbi_forward")
     LAUNCHES["forward_wide" if wide else "forward"] += 1
     return best, bstate, oMI, oXH, exit_
@@ -383,7 +399,7 @@ def _launch_backward(s, lengths, bstate, oMI, oXH, return_path, t0, entry,
     _require(oMI.dim() == 4 and oXH.dim() == 4,
              "origin planes must be (G, L, B, width)")
     G, L, B, P2 = oMI.shape
-    dev = oMI.device
+    dev = _one_device(oMI, oXH, lengths, bstate, entry)
     _require(G == s.G and P2 == 2 * s.P
              and oXH.shape == (G, L, B, 2 * s.nb),
              f"origin planes {tuple(oMI.shape)}, {tuple(oXH.shape)} do not "
@@ -415,11 +431,12 @@ def _launch_backward(s, lengths, bstate, oMI, oXH, return_path, t0, entry,
     if B == 0:
         return path, stats, exit_
     opt = lambda x: None if x is None else _ptr(x)
-    code = lib.advntr_viterbi_backward(
-        _ptr(lengths32), _ptr(bstate32), _ptr(oMI), _ptr(oXH),
-        _ptr(s.region), _ptr(s.unit), opt(path), _ptr(stats), opt(entry32),
-        opt(exit_), G, B, L, s.P, s.nb, s.region.shape[1], int(origin32),
-        mbit, int(return_path), int(t0), _stream(dev))
+    with torch.cuda.device(dev):
+        code = lib.advntr_viterbi_backward(
+            _ptr(lengths32), _ptr(bstate32), _ptr(oMI), _ptr(oXH),
+            _ptr(s.region), _ptr(s.unit), opt(path), _ptr(stats),
+            opt(entry32), opt(exit_), G, B, L, s.P, s.nb, s.region.shape[1],
+            int(origin32), mbit, int(return_path), int(t0), _stream(dev))
     _check(code, "viterbi_backward")
     LAUNCHES["backward"] += 1
     return path, stats, exit_
@@ -464,7 +481,7 @@ def local_align_passes(reads, lengths, probes, probe_lengths, read_sets):
              f"reads must be (R, B, L) int8; got {tuple(reads.shape)} "
              f"{reads.dtype}")
     R, B, L = reads.shape
-    dev = reads.device
+    dev = _one_device(reads, lengths, probes)
     Q = len(probe_lengths)
     _require(lengths.shape == (B,) and lengths.device == dev
              and probes.dim() == 2 and probes.shape[0] == Q
@@ -494,10 +511,11 @@ def local_align_passes(reads, lengths, probes, probe_lengths, read_sets):
     end = torch.empty(Q, B, dtype=torch.int32, device=dev)
     work = torch.zeros(2, Q, B, dtype=torch.int64, device=dev)
     ints = lambda xs: (ctypes.c_int * Q)(*xs)
-    code = lib.advntr_local_align(
-        _ptr(reads), _ptr(lengths32), _ptr(probes), ints(probe_lengths),
-        ints(read_sets), _ptr(score), _ptr(end), _ptr(work), R, B, L, Q,
-        probes.shape[1], chunks, rows, _stream(dev))
+    with torch.cuda.device(dev):
+        code = lib.advntr_local_align(
+            _ptr(reads), _ptr(lengths32), _ptr(probes), ints(probe_lengths),
+            ints(read_sets), _ptr(score), _ptr(end), _ptr(work), R, B, L, Q,
+            probes.shape[1], chunks, rows, _stream(dev))
     _check(code, "local_align")
     LAUNCHES["local_align"] += 1
     return score, end

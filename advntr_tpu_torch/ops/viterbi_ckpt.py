@@ -18,13 +18,22 @@ The largest live tensors are one segment's planes, O(K B P), and the
 ceil(L / K) entry states, O(L / K B P); nothing the size of (L, B, P) is
 ever allocated.  Forward work doubles.
 
-Where the reference re-derives each argmax of pass 2 from value planes
-through a dense (S, S) transition table, B1 records every argmax's origin
-as it goes, so the port has no such table: pass 2 walks origin planes, as
-the whole-read path does.  Both passes run the same kernels (or, for CPU
-tensors, the same plain twins) as the whole-read path, a segment being a
-launch with an entry state and a first column, so score, end state and
-path are the whole-read path's bit for bit.
+Two decoders are segmented so:
+
+- ``viterbi_checkpointed`` (B1 and B2): B1 records every argmax's origin
+  as it goes, so pass 2 walks origin planes, as the whole-read path does.
+  Both passes run the same kernels (or, for CPU tensors, the same plain
+  twins) as the whole-read path, a segment being a launch with an entry
+  state and a first column;
+- ``viterbi_struct_checkpointed`` (the structured decoder of
+  ops/viterbi_struct.py, the reference's own segmentation,
+  viterbi_ckpt.py:69-157): the entry state is the (M, I, I0, D, hub,
+  best) carry, pass 2 keeps the segment's value planes and re-derives
+  each argmax through the dense (S, S) in-edge table; the emissions of
+  each column are gathered inside the column.
+
+Either way score, end state and path are its whole-read path's bit for
+bit.
 """
 
 from __future__ import annotations
@@ -32,6 +41,7 @@ from __future__ import annotations
 import torch
 
 from advntr_tpu_torch.ops import viterbi_fused as vf
+from advntr_tpu_torch.ops import viterbi_struct as vs
 from advntr_tpu_torch.ops.struct_model import (StructModelStack,
                                                TorchStructModel)
 
@@ -84,3 +94,45 @@ def viterbi_checkpointed(m: TorchStructModel, seqs, lengths,
     if not return_path:
         return best[0], end_state, None
     return best[0], end_state, m.struct_to_art[path_s[0].long()]
+
+
+def viterbi_struct_checkpointed(m: vs.StructDeviceModel, seqs, lengths,
+                                suffix_last, return_path: bool = True,
+                                segment: int = 512):
+    """Two-pass structured Viterbi: the contract of
+    ``viterbi_struct.viterbi_struct_batch`` (one locus or a stacked
+    group), with the planes of one segment of ``segment`` columns alive at
+    a time instead of the whole read's."""
+    m, seqs, lengths, grouped = vs.grouped_inputs(m, seqs, lengths,
+                                                  suffix_last)
+    G, B, L = seqs.shape
+    cols = vs.columns(m, seqs, suffix_last if grouped else [suffix_last])
+    carry = vs.initial_column(cols)
+    K = max(1, min(int(segment), L - 1))
+    bounds = [(t0, min(t0 + K, L)) for t0 in range(1, L, K)]
+
+    # ---- pass 1: forward, keeping each segment's entry carry -------------
+    entries = []
+    for t0, t1 in bounds:
+        entries.append(carry)
+        carry = vs.run_columns(cols, lengths, carry, t0, t1)
+    best = carry[5]
+    if not return_path:
+        return (best if grouped else best[0]), None, None
+
+    # ---- pass 2: segments in reverse: planes again, then the walk --------
+    end_s = vs.end_states(cols, carry)
+    path_s = torch.empty(G, B, L, dtype=torch.long, device=seqs.device)
+    cur = end_s
+    if bounds:
+        planes = torch.empty(K, G, B, m.log_end_struct.shape[1],
+                             dtype=torch.float32, device=seqs.device)
+    for (t0, t1), entry in zip(reversed(bounds), reversed(entries)):
+        seg = planes[:t1 - t0]
+        vs.run_columns(cols, lengths, entry, t0, t1, seg)
+        cur = vs.walk_back(cols, lengths, seg, t0, t1, cur, path_s)
+    path_s[..., 0] = cur
+    end_state, path = vs.to_artifact(cols, lengths, end_s, path_s)
+    if grouped:
+        return best, end_state, path
+    return best[0], end_state[0], path[0]

@@ -404,6 +404,79 @@ def write_pacbio_panel(workdir: str, n_loci: int = 4, coverage: float = 10,
     return db, fa, truth, long_vids
 
 
+# ---- the randomized conformance soak (tests/test_conformance_soak.py) -----
+
+def _rng_seq(rng, n: int) -> str:
+    return "".join(rng.choice("ACGT") for _ in range(n))
+
+
+SOAK_WIDTHS = {"plens": (5, 7, 11, 14), "flanks": (12, 20), "copies": (3, 5),
+               "pos_bucket": 64}
+# the soak widened to the cell's P 512 and the long-read model's P 2,560
+SOAK_CELL = {"plens": (11, 12, 14), "flanks": (150,),
+             "copies": (10, 11, 12, 13), "pos_bucket": 64}
+SOAK_LONG = {"plens": (25,), "flanks": (300,),
+             "copies": (60, 64, 68), "pos_bucket": 512}
+
+
+def soak_model(rng, err: float, plens=SOAK_WIDTHS["plens"],
+               flanks=SOAK_WIDTHS["flanks"], copies=SOAK_WIDTHS["copies"],
+               pos_bucket: int = SOAK_WIDTHS["pos_bucket"]):
+    """A random read-matcher model of the soak (make_model,
+    tests/test_conformance_soak.py:23-43): a random motif of a length from
+    ``plens``, three units that may each carry one substitution, random
+    flanks of a length from ``flanks``, a copy count from ``copies``.  With
+    the default widths the same ``random.Random`` draws give the
+    reference's model.  Returns (graph, art, padded sm, left, pattern,
+    right, copies); P pads to a multiple of ``pos_bucket`` above P and C
+    to a multiple of 8."""
+    plen = rng.choice(list(plens))
+    pattern = _rng_seq(rng, plen)
+    units = []
+    for _ in range(3):
+        u = list(pattern)
+        if rng.random() < 0.5:
+            u[rng.randrange(plen)] = rng.choice("ACGT")
+        units.append("".join(u))
+    left = _rng_seq(rng, rng.choice(list(flanks)))
+    right = _rng_seq(rng, rng.choice(list(flanks)))
+    n_copies = rng.choice(list(copies))
+    trans, emis = profile_for_repeats(units, err)
+    g = build_read_matcher(left, right, trans, emis, n_copies, err)
+    art = compile_graph(g)
+    sm = padded_structured(g, art, pos_bucket, 8)
+    return g, art, sm, left, pattern, right, n_copies
+
+
+def soak_read(rng, left: str, pattern: str, right: str, copies: int) -> str:
+    """A read of the soak (make_read, tests/test_conformance_soak.py:
+    46-68): a fragment, junk, a chimera or the whole haplotype, with up
+    to four substitutions and indels."""
+    hap = left + pattern * rng.randint(1, copies + 2) + right
+    kind = rng.random()
+    if kind < 0.5:
+        a = rng.randint(0, max(0, len(hap) - 15))
+        b = rng.randint(a + 10, len(hap))
+        read = hap[a:b]
+    elif kind < 0.7:
+        read = _rng_seq(rng, rng.randint(10, 60))          # junk
+    elif kind < 0.85:
+        read = hap[: len(hap) // 2] + _rng_seq(rng, 20)    # chimera
+    else:
+        read = hap
+    chars = list(read)
+    for _ in range(rng.randint(0, 4)):
+        op = rng.random()
+        i = rng.randrange(len(chars))
+        if op < 0.5:
+            chars[i] = rng.choice("ACGT")
+        elif op < 0.75 and len(chars) > 12:
+            del chars[i]
+        else:
+            chars.insert(i, rng.choice("ACGT"))
+    return "".join(chars)
+
+
 def encode_reads(reads: list[str], pad_to: int):
     """(B, pad_to) int8 bases and (B,) int32 lengths, as the engine pads."""
     rows = [dna.encode(r) for r in reads]
@@ -416,7 +489,6 @@ def rescore(art, path, codes) -> float:
     for t in range(1, len(codes)):
         s += art.log_T[path[t - 1], path[t]] + art.log_E[path[t], codes[t]]
     return s + float(art.log_end[path[-1]])
-
 
 
 def random_wide_model(P: int, C: int, seed: int, device, flank: int = 1100):

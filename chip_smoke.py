@@ -173,17 +173,36 @@ turns, without holding them to anything.
    finder on the card: every row (k, k), the rows equal to the same
    sweep with a CPU finder, its wall time and launches.
 
+11. the structured decoder (``ADVNTR_TPU_KERNEL=struct``, plain PyTorch,
+   no kernel of its own): on the card bit-identical to the CPU (the CSTB
+   model, 64 reads); the randomized soak widened to the cell's width
+   (P 512, six models of 64 reads) and the long-read model's (P 2,560,
+   both sides through their checkpointed paths), B1 and B2 held to it
+   under ROADMAP's contract, with its models, rows, tie rows and the
+   paths rescored in float64 on the host; ``genotype`` under struct on
+   the card for the CSTB fixture and phase 5's panel, equal to
+   ``--device cpu``'s (the panel's in a process of its own while the
+   card works) and to the default kernel's, launching neither kernel;
+   its times by CUDA events at the cell, at the group shape (the CSTB
+   model x 8, B 512 each) and on the long-read batch through
+   ``read_stats_struct_ckpt`` (held to B1/B2's checkpointed path there),
+   with its launches a call (torch.profiler) and peak MiB; and, where
+   more than one card is visible, B1, B2 and ``local_align`` on cuda:1's
+   tensors with cuda:0 current, bit-identical to cuda:0's (C-4).
+
 The Illumina path (phase 5), the long-read path (phase 7), the
-frameshift and update path (phase 8), model management (phase 9) and
-each path of phase 10 are each driven with every launch count set to 0
-just before and read just after (the sharded panel's processes start
-from 0 and report their own).
+frameshift and update path (phase 8), model management (phase 9),
+each path of phase 10 and the struct CLI runs of phase 11 (which must
+launch no kernel) are each driven with every launch count set to 0 just
+before and read just after (the sharded panel's processes start from 0
+and report their own).
 The last three lines are the nvidia-smi line, one JSON object of the
 kernels, and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -678,7 +697,9 @@ def phase_walk(kernels, m, seqs, lens, group, sources):
     import ctypes
     from advntr_tpu_torch.ops import viterbi_fused as vf
     dev = seqs.device
-    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    # larger than the L2 cache, and long enough on the device (0.3 ms) to
+    # cover the wrapper's host time, which 256 MB did not always do
+    flush = torch.empty(1 << 30, dtype=torch.uint8, device=dev)
     libs = kernels.build()
     name = "viterbi_backward.cu"
     builds = {"committed": libs[name]}
@@ -1122,7 +1143,9 @@ def phase_long_reads(dev, kernels, cell, L, B, tail=False):
     walk = lambda: vf.backward_walk_segment_grouped(
         stack, lens[None], bstate, oMI, oXH, c0, bstate)
     b2_wrapper_ms = time_ms(walk, **it)
-    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    # larger than the L2 cache, and long enough on the device (0.3 ms) to
+    # cover the wrapper's host time, which 256 MB did not always do
+    flush = torch.empty(1 << 30, dtype=torch.uint8, device=dev)
     b2_ms = launch_ms(walk, flush, iters=10 if tail else 50)
     del flush
     bounds = long_read_bounds(m, B, LONG_K, width)
@@ -2318,6 +2341,15 @@ def phase_sharded_dispatch(dev, kernels, group):
     return out
 
 
+def stop(proc) -> None:
+    """Kill a process started in a session of its own, with its group."""
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+    proc.wait()
+
+
 def _wall_ms(fn) -> float:
     t0 = time.perf_counter()
     fn()
@@ -2351,11 +2383,7 @@ def run_sharded_panel_processes(dev, db, bam, workdir, nproc, io_threads,
                   f"{err[-3000:]}")
     finally:
         for p in procs:
-            try:
-                os.killpg(p.pid, signal.SIGKILL)
-            except ProcessLookupError:
-                pass
-            p.wait()
+            stop(p)
     wall = time.perf_counter() - t0
     reports = []
     for p in range(nproc):
@@ -2483,6 +2511,424 @@ def phase_scale_out(dev, kernels, group, panel_text):
            "sweep": phase_sweep(dev, kernels)}
     out["phase_s"] = time.perf_counter() - t0
     log(f"phase 10: {out['phase_s']:.1f} s")
+    return out
+
+
+# ---- the structured decoder (phase 11) --------------------------------------
+
+# the soak on the card: (widths of synthetic.soak_model, models, reads a
+# model, first seed); the cell's width (P 512) and the long-read model's
+# (P 2,560, reads past B1's whole-plane limit: both sides segmented)
+STRUCT_SOAK = {"cell": ("SOAK_CELL", 6, 64, 100),
+               "long": ("SOAK_LONG", 1, 32, 200)}
+SOAK_TOL = dict(rel=1e-4, abs=2e-2)
+# the cell's reads a model of the group shape (G 8 of the CSTB model)
+STRUCT_GROUP_ROWS = 512
+STRUCT_PANEL_TIMEOUT = 240
+
+
+@contextlib.contextmanager
+def kernel_env(kernel):
+    """``ADVNTR_TPU_KERNEL`` set inside the block, put back after."""
+    saved = os.environ.get("ADVNTR_TPU_KERNEL")
+    os.environ["ADVNTR_TPU_KERNEL"] = kernel
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("ADVNTR_TPU_KERNEL", None)
+        else:
+            os.environ["ADVNTR_TPU_KERNEL"] = saved
+
+
+def struct_contract(what, art, rows, struct, kern) -> dict:
+    """B1/B2's results ``kern`` held to the structured decoder's
+    ``struct`` under ROADMAP's contract: logp within rtol 1e-4 / atol
+    1e-2; statistics equal on every row whose two paths are equal; where
+    they differ (a tie), both paths rescore in float64 to the structured
+    optimum.  Every structured path is rescored too."""
+    from advntr_tpu_torch.ops.viterbi_fused import STAT_KEYS
+    from advntr_tpu_torch.synthetic import rescore
+    l1 = struct["logp"].cpu().numpy()
+    l2 = kern["logp"].cpu().numpy()
+    keep = l1 > -1e20
+    check(np.allclose(l2[keep], l1[keep], **LOGP_TOL),
+          f"{what}: kernels' logp differs from the structured path's")
+    p1, p2 = struct["path"].cpu().numpy(), kern["path"].cpu().numpy()
+    stats = {k: (struct[k].cpu().numpy(), kern[k].cpu().numpy())
+             for k in STAT_KEYS}
+    ties = rescored = 0
+    worst = 0.0
+    for b, codes in enumerate(rows):
+        if not keep[b]:
+            continue
+        n = len(codes)
+        paths = [p1[b, :n]]
+        if np.array_equal(p1[b, :n], p2[b, :n]):
+            bad = [k for k, (x, y) in stats.items() if x[b] != y[b]]
+            check(not bad, f"{what}: row {b} has equal paths and other "
+                           f"statistics {bad}")
+        else:
+            ties += 1
+            paths.append(p2[b, :n])
+        for path in paths:
+            score = rescore(art, path, codes)
+            rescored += 1
+            err = abs(score - float(l1[b]))
+            worst = max(worst, err)
+            check(err <= SOAK_TOL["abs"] + SOAK_TOL["rel"] * abs(score),
+                  f"{what}: row {b}'s path rescores to {score}, the "
+                  f"optimum is {l1[b]}")
+    return {"rows": int(keep.sum()), "tie_rows": ties,
+            "rescored_f64": rescored, "max_rescore_err": worst,
+            "max_abs_err": float(np.abs(l2[keep] - l1[keep]).max())}
+
+
+def struct_bitwise(dev) -> dict:
+    """The structured decoder on the card against the CPU, bit for bit:
+    the CSTB cell's model, 64 of its reads, every statistic and path."""
+    from advntr_tpu_torch.engine import device_analytics as da
+    from advntr_tpu_torch.ops.struct_model import TorchStructModel
+    from advntr_tpu_torch.ops.viterbi_struct import StructDeviceModel
+    from advntr_tpu_torch.synthetic import (build_cstb_locus, encode_reads,
+                                            padded_structured,
+                                            simulate_cstb_reads)
+    graph, art, left, right, pattern = build_cstb_locus(READ_LEN)
+    sm = padded_structured(graph, art, pos_bucket=128)
+    reads = simulate_cstb_reads(left, pattern, right, READ_LEN, 64, seed=9)
+    batch, lengths = encode_reads(reads, READ_LEN)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        meta = TorchStructModel.from_payload(art, sm, d).art_meta
+        out[d.type] = da.read_stats_struct(
+            StructDeviceModel.from_struct(sm, art, d), meta,
+            torch.as_tensor(batch, device=d),
+            torch.as_tensor(lengths, device=d), sm.suffix_last,
+            return_path=True)
+    for k, v in out["cpu"].items():
+        check(torch.equal(out[dev.type][k].cpu(), v),
+              f"structured path: {k} on {dev.type} differs from the CPU")
+    log(f"struct bitwise: CSTB model (P {sm.P}), 64 reads: logp, paths and "
+        f"every statistic on {dev.type} bit-identical to the CPU")
+    return {"rows": len(reads)}
+
+
+def struct_soak(dev) -> dict:
+    """The soak at full width on the card: random models of the cell's
+    and the long-read model's widths; B1/B2 held to the structured path
+    under the contract (whole reads at the cell's width; the long-read
+    width through both checkpointed paths, segments of LONG_K)."""
+    import random
+
+    from advntr_tpu_torch import dna, synthetic
+    from advntr_tpu_torch.engine import device_analytics as da
+    from advntr_tpu_torch.ops.struct_model import TorchStructModel
+    from advntr_tpu_torch.ops.viterbi_struct import StructDeviceModel
+    out = {}
+    for name, (widths, n_models, n_reads, seed0) in STRUCT_SOAK.items():
+        widths = getattr(synthetic, widths)
+        total = {"models": 0, "P": set(), "rows": 0, "tie_rows": 0,
+                 "rescored_f64": 0, "max_rescore_err": 0.0,
+                 "max_abs_err": 0.0}
+        for i in range(n_models):
+            rng = random.Random(seed0 + i)
+            err = (0.05, 0.3)[i % 2]
+            _, art, sm, left, pattern, right, copies = synthetic.soak_model(
+                rng, err, **widths)
+            reads = [synthetic.soak_read(rng, left, pattern, right, copies)
+                     for _ in range(n_reads)]
+            rows = [dna.encode(r) for r in reads]
+            batch, lengths = dna.pad_batch(rows, multiple=32)
+            q = torch.as_tensor(batch, device=dev)
+            n = torch.as_tensor(lengths, device=dev)
+            tm = TorchStructModel.from_payload(art, sm, dev)
+            sdm = StructDeviceModel.from_struct(sm, art, dev)
+            if name == "long":
+                struct = da.read_stats_struct_ckpt(
+                    sdm, tm.art_meta, q, n, sm.suffix_last,
+                    return_path=True, segment=LONG_K)
+                kern = da.read_stats_ckpt(tm, q, n, return_path=True,
+                                          segment=LONG_K)
+            else:
+                struct = da.read_stats_struct(sdm, tm.art_meta, q, n,
+                                              sm.suffix_last,
+                                              return_path=True)
+                kern = da.read_stats(tm, q, n, return_path=True)
+            sync(dev)
+            got = struct_contract(f"soak {name} model {i}", art, rows,
+                                  struct, kern)
+            total["models"] += 1
+            total["P"].add(sm.P)
+            for k in ("rows", "tie_rows", "rescored_f64"):
+                total[k] += got[k]
+            for k in ("max_rescore_err", "max_abs_err"):
+                total[k] = max(total[k], got[k])
+        total["P"] = sorted(total["P"])
+        out[name] = total
+        log(f"struct soak ({name} width): {total['models']} models, P "
+            f"{total['P']}, {total['rows']} rows, {total['tie_rows']} tie "
+            f"rows, {total['rescored_f64']} paths rescored on the host in "
+            f"float64 (largest gap to the optimum "
+            f"{total['max_rescore_err']:.3g}); max |logp - struct| "
+            f"{total['max_abs_err']:.3g}")
+    return out
+
+
+def start_struct_panel_cpu(db, bam, workdir):
+    """``genotype`` with ADVNTR_TPU_KERNEL=struct --device cpu on the
+    panel in a process of its own (it runs while the card works), in a
+    session of its own so that its build pool goes with it."""
+    os.makedirs(workdir)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, ADVNTR_TPU_KERNEL="struct", PYTHONPATH=repo,
+               OMP_NUM_THREADS="6")
+    out = os.path.join(workdir, "out.txt")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "advntr_tpu_torch.cli", "genotype", "-a",
+         bam, "-m", db, "--working_directory", workdir, "--disable_logging",
+         "-o", out, "--device", "cpu"], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, start_new_session=True, env=env)
+    return proc, out, time.perf_counter()
+
+
+def struct_cli(dev, kernels, tmp, panel, panel_text) -> dict:
+    """``genotype`` under ADVNTR_TPU_KERNEL=struct on the card against
+    --device cpu and the default kernel: the CSTB fixture and the
+    24-locus panel.  The struct runs launch neither kernel."""
+    from advntr_tpu_torch.synthetic import write_cstb_sample
+    cstb_db, cstb_bam = write_cstb_sample(tmp)
+
+    def argv(db, bam, wd, device):
+        os.makedirs(wd)
+        return ["genotype", "-a", bam, "-m", db, "--working_directory",
+                wd, "--disable_logging", "-o", os.path.join(wd, "out.txt"),
+                "--device", device]
+
+    texts, secs = {}, {}
+    texts["cstb_default"], secs["cstb_default"] = run_cli(
+        argv(cstb_db, cstb_bam, os.path.join(tmp, "cstb_default"), dev.type))
+    kernels.reset_launches()
+    with kernel_env("struct"):
+        for name, (db, bam) in (("cstb", (cstb_db, cstb_bam)),
+                                ("panel", panel)):
+            texts[name], secs[name] = run_cli(
+                argv(db, bam, os.path.join(tmp, name + "_struct"), dev.type))
+        launches = dict(kernels.LAUNCHES)
+        texts["cstb_cpu"], secs["cstb_cpu"] = run_cli(
+            argv(cstb_db, cstb_bam, os.path.join(tmp, "cstb_cpu"), "cpu"))
+    check(not any(launches.values()),
+          f"the struct runs launched kernels: {launches}")
+    check(texts["cstb"] == texts["cstb_cpu"] == texts["cstb_default"],
+          "CSTB: struct text on the card differs from --device cpu's or "
+          "the default kernel's")
+    check(texts["cstb"].split() == ["301645", "2/5"],
+          f"CSTB struct call {texts['cstb'].split()}")
+    check(texts["panel"] == panel_text,
+          "panel: struct text on the card differs from the default's")
+    log(f"struct CLI: CSTB 2/5 on the card ({secs['cstb']:.2f} s), equal "
+        f"to --device cpu ({secs['cstb_cpu']:.2f} s) and to the default "
+        f"kernel; the {PANEL_LOCI}-locus panel on the card "
+        f"{secs['panel']:.2f} s cold, equal to the default's text; "
+        f"launches {launches}")
+    return {"s": secs, "launches": launches}
+
+
+def struct_launches(dev, fn) -> int:
+    """Device operations (kernels, copies, fills) one call of ``fn``
+    enqueues, as torch.profiler counts them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    if dev.type != "cuda":
+        return 0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync(dev)
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA)
+
+
+def struct_timed(dev, fn, iters, warmup=1) -> tuple[float, float]:
+    """(median ms of ``iters`` event-timed calls after ``warmup``, peak
+    MiB above what was allocated before)."""
+    sync(dev)
+    base = torch.cuda.memory_allocated() if dev.type == "cuda" else 0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    ms = time_ms(fn, iters=iters, warmup=warmup)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**20 \
+        if dev.type == "cuda" else 0.0
+    return ms, peak
+
+
+def struct_timing(dev) -> dict:
+    """The structured decoder timed by CUDA events at the cell (B 4096,
+    L 160), at the group shape (the CSTB model x 8, B 512 each) and on the
+    long-read batch (B 64, L 2,432, P 2,560) through
+    read_stats_struct_ckpt, each with its launches a call and peak MiB;
+    the long-read batch also held to B1/B2's checkpointed path."""
+    from advntr_tpu_torch.engine import device_analytics as da
+    from advntr_tpu_torch.engine.finder import LocusModelCache
+    from advntr_tpu_torch.models.struct_compiler import build_structured
+    from advntr_tpu_torch.ops.struct_model import TorchStructModel
+    from advntr_tpu_torch.ops.viterbi_struct import StructDeviceModel
+    from advntr_tpu_torch.synthetic import (build_cstb_locus,
+                                            build_long_read_locus,
+                                            encode_reads, padded_structured,
+                                            simulate_cstb_reads,
+                                            simulate_long_reads)
+    out = {}
+    graph, art, left, right, pattern = build_cstb_locus(READ_LEN)
+    sm = padded_structured(graph, art, pos_bucket=128)
+    reads = simulate_cstb_reads(left, pattern, right, READ_LEN, N_READS,
+                                seed=9)
+    batch, lengths = encode_reads(reads, READ_LEN)
+    q = torch.as_tensor(batch, device=dev)
+    n = torch.as_tensor(lengths, device=dev)
+    m = StructDeviceModel.from_struct(sm, art, dev)
+    meta = TorchStructModel.from_payload(art, sm, dev).art_meta
+    cell = lambda: da.read_stats_struct(m, meta, q, n, sm.suffix_last)
+    G, rows = GROUP, STRUCT_GROUP_ROWS
+    gm = StructDeviceModel.stack([m] * G)
+    gmeta = da.stack_meta([meta] * G)
+    gq, gn = q[:G * rows].reshape(G, rows, -1), n[:G * rows].reshape(G, rows)
+    gsl = torch.full((G,), sm.suffix_last, device=dev)
+    group = lambda: da.read_stats_struct_grouped(gm, gmeta, gq, gn, gsl)
+    for name, fn, iters in (("cell", cell, 3), ("group", group, 3)):
+        ms, peak = struct_timed(dev, fn, iters)
+        out[name] = {"ms": ms, "peak_mib": peak,
+                     "launches": struct_launches(dev, fn)}
+    del gm, gq, gn
+    # the long-read batch, the model padded as the engine pads it
+    graph, art, rng, hap = build_long_read_locus(LONG_L)
+    with kernel_env("struct"):
+        lm = LocusModelCache(device=dev)._build_from_payload(
+            art, build_structured(graph, art))
+    t0 = time.perf_counter()
+    lsm = lm.struct_model()
+    sync(dev)
+    build_s = time.perf_counter() - t0
+    reads = simulate_long_reads(rng, hap, LONG_B, LONG_L)
+    batch, lengths = encode_reads(reads, LONG_L)
+    lq = torch.as_tensor(batch, device=dev)
+    ln = torch.as_tensor(lengths, device=dev)
+    res = {}
+
+    def long_batch():
+        res["struct"] = da.read_stats_struct_ckpt(
+            lsm, lm.model.art_meta, lq, ln, lm.sm.suffix_last,
+            return_path=True, segment=LONG_K)
+
+    ms, peak = struct_timed(dev, long_batch, iters=1, warmup=0)
+    cut = 128
+    launches_cut = struct_launches(dev, lambda: da.read_stats_struct_ckpt(
+        lsm, lm.model.art_meta, lq[:, :cut], ln.clamp(max=cut),
+        lm.sm.suffix_last, segment=cut // 2))
+    kern = da.read_stats_ckpt(lm.model, lq, ln, return_path=True,
+                              segment=LONG_K)
+    sync(dev)
+    contract = struct_contract("long-read batch", art,
+                               [b[:k] for b, k in zip(batch, lengths)],
+                               res["struct"], kern)
+    out["long"] = {"ms": ms, "peak_mib": peak, "P": lm.sm.P,
+                   "n_states": art.n_states, "S": 2 * lm.sm.P + lm.sm.nb,
+                   "table_build_s": build_s,
+                   f"launches_first_{cut}_columns": launches_cut,
+                   "reads_per_s": LONG_B / (ms / 1e3), **contract}
+    log(f"struct timing: cell (B {N_READS}, L {L_PAD}, P {sm.P}) "
+        f"{out['cell']['ms']:.3f} ms, {out['cell']['launches']} launches, "
+        f"peak {out['cell']['peak_mib']:.1f} MiB; group (G {G}, B {rows}) "
+        f"{out['group']['ms']:.3f} ms, {out['group']['launches']} launches, "
+        f"peak {out['group']['peak_mib']:.1f} MiB; long-read batch (B "
+        f"{LONG_B}, L {LONG_L}, P {lm.sm.P}, K {LONG_K}) {ms:.1f} ms "
+        f"({LONG_B / (ms / 1e3):.1f} reads/s), peak {peak:.1f} MiB, "
+        f"{launches_cut} launches over its first {cut} columns "
+        f"(K {cut // 2}); its (S, S) table built in {build_s:.2f} s; "
+        f"B1/B2 held to it: {contract}")
+    return out
+
+
+def c4_check(dev) -> str:
+    """C-4: with cuda:0 current, each kernel handed cuda:1's tensors gives
+    cuda:0's results bit for bit (run where more than one card is
+    visible)."""
+    from advntr_tpu_torch import dna
+    from advntr_tpu_torch.ops import _kernels
+    from advntr_tpu_torch.ops.struct_model import TorchStructModel
+    from advntr_tpu_torch.synthetic import (build_cstb_locus, encode_reads,
+                                            padded_structured,
+                                            simulate_cstb_reads)
+    if dev.type != "cuda" or torch.cuda.device_count() < 2:
+        return "not run: one card"
+    graph, art, left, right, pattern = build_cstb_locus(READ_LEN)
+    sm = padded_structured(graph, art, pos_bucket=128)
+    reads = simulate_cstb_reads(left, pattern, right, READ_LEN, 256, seed=9)
+    batch, lengths = encode_reads(reads, READ_LEN)
+    probe = torch.as_tensor(dna.encode(left[-60:]))[None]
+    out = {}
+    for index in (0, 1):
+        d = torch.device("cuda", index)
+        with torch.cuda.device(0):
+            s = TorchStructModel.from_payload(art, sm, d).as_stack()
+            q = torch.as_tensor(batch, device=d)[None]
+            n = torch.as_tensor(lengths, device=d)[None]
+            fwd = _kernels.forward(s, q, n)
+            wide = _kernels.forward(s, q, n, wide=True)
+            walk = _kernels.backward(s, n, *fwd[1:])
+            align = _kernels.local_align_passes(q, n[0], probe.to(d),
+                                                [60], [0])
+        torch.cuda.synchronize(d)
+        out[index] = [x.cpu() for x in (*fwd, *wide, *walk, *align)]
+    check(all(torch.equal(a, b) for a, b in zip(out[0], out[1])),
+          "C-4: kernels on cuda:1 with cuda:0 current differ from cuda:0's")
+    return "cuda:1 with cuda:0 current bit-identical to cuda:0"
+
+
+def phase_struct(dev, kernels, panel_text) -> dict:
+    """Phase 11: the structured decoder (ADVNTR_TPU_KERNEL=struct, plain
+    PyTorch): on the card against the CPU, the soak at full width with
+    B1/B2 held to it, genotype text, times; the C-4 check."""
+    from advntr_tpu_torch.synthetic import write_panel
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_struct_")
+    proc = None
+    try:
+        db, bam, _ = write_panel(tmp, n_loci=PANEL_LOCI, read_length=150,
+                                 coverage=30)
+        proc, cpu_out, cpu_t0 = start_struct_panel_cpu(
+            db, bam, os.path.join(tmp, "panel_cpu"))
+        marks = {}
+        mark = lambda name: marks.setdefault(name, round(
+            time.perf_counter() - t0, 1))
+        out = {"bitwise": struct_bitwise(dev), "marks_s": marks}
+        mark("bitwise")
+        out["soak"] = struct_soak(dev)
+        mark("soak")
+        out["cli"] = struct_cli(dev, kernels, tmp, (db, bam), panel_text)
+        mark("cli")
+        # the CPU run ends before the timed runs, which it would slow
+        _, err = proc.communicate(timeout=STRUCT_PANEL_TIMEOUT)
+        check(proc.returncode == 0,
+              f"struct panel --device cpu failed: {err[-3000:]}")
+        out["cli"]["s"]["panel_cpu"] = time.perf_counter() - cpu_t0
+        with open(cpu_out) as fh:
+            check(fh.read() == panel_text,
+                  "panel: struct text with --device cpu differs from the "
+                  "card's")
+        log(f"struct CLI: the panel with --device cpu (its own process, "
+            f"beside the card's work) equal, "
+            f"{out['cli']['s']['panel_cpu']:.1f} s")
+        mark("panel_cpu")
+        out["timing"] = struct_timing(dev)
+        mark("timing")
+        out["c4"] = c4_check(dev)
+        log(f"C-4: {out['c4']}")
+    finally:
+        if proc is not None:
+            stop(proc)
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"phase 11: {out['phase_s']:.1f} s (ends of its steps, s: "
+        f"{out['marks_s']})")
     return out
 
 
@@ -2655,6 +3101,7 @@ def main() -> None:
     models = phase_model_management(dev, _kernels, panel_text)
     scale = phase_scale_out(dev, _kernels, group, panel_text)
     del group
+    struct = phase_struct(dev, _kernels, panel_text)
     tail = None
     if long_tail:
         tail = phase_long_reads(dev, _kernels, None, TAIL_L, TAIL_B,
@@ -2767,6 +3214,8 @@ def main() -> None:
                                 "buildbank")}))
     log("scale-out and sweep (B1/B2 through the mesh, the processes and "
         "the finder): " + json.dumps(scale))
+    log("structured decoder (plain PyTorch, no kernel of its own): "
+        + json.dumps(struct))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,9 @@
 """The port's CLI (``--device cpu``) against the JAX CLI on the CSTB 2/5
 fixture of tests/test_cli_end_to_end.py: byte-identical text, BED and VCF
-output, resume from the JSONL checkpoint, and a bank written by the
-reference's ``buildbank`` consumed with no host model build."""
+output (the port's default kernel, and ``ADVNTR_TPU_KERNEL=struct``),
+resume from the JSONL checkpoint, and a bank written by the reference's
+``buildbank`` consumed with no host model build.  The reference's CLI on
+the CPU scores with its struct kernel, its CPU default."""
 
 import json
 import os
@@ -35,15 +37,39 @@ def _genotype(main, sample, workdir, extra, device=()):
         return fh.read()
 
 
+def _reference(sample, fmt):
+    """The reference CLI's output in ``fmt``, run once a module."""
+    if fmt not in sample.setdefault("reference", {}):
+        sample["reference"][fmt] = _genotype(
+            jax_cli.main, sample, sample["dir"] / f"jax_{fmt}", ["-of", fmt])
+    return sample["reference"][fmt]
+
+
 @pytest.mark.parametrize("fmt", ["text", "bed", "vcf"])
 def test_output_identical_to_reference(sample, fmt):
-    ref = _genotype(jax_cli.main, sample, sample["dir"] / f"jax_{fmt}",
-                    ["-of", fmt])
+    ref = _reference(sample, fmt)
     got = _genotype(cli.main, sample, sample["dir"] / f"torch_{fmt}",
                     ["-of", fmt], ["--device", "cpu"])
     assert got == ref
     if fmt == "text":
         assert got.splitlines() == ["301645", "2/5"]
+
+
+def test_struct_kernel_text_equals_reference(sample, monkeypatch):
+    """``ADVNTR_TPU_KERNEL=struct``: the port's structured decoder gives
+    the reference CPU CLI's text, and no launch of B1 or B2 is asked for
+    (nothing falls back to the other kernel)."""
+    from advntr_tpu_torch.ops import viterbi_fused as vf
+    monkeypatch.setenv("ADVNTR_TPU_KERNEL", "struct")
+    calls = []
+    monkeypatch.setattr(vf, "viterbi_stats_grouped",
+                        lambda *a, **k: calls.append("pallas"))
+    monkeypatch.setattr(vf, "viterbi_stats",
+                        lambda *a, **k: calls.append("pallas"))
+    got = _genotype(cli.main, sample, sample["dir"] / "torch_struct", [],
+                    ["--device", "cpu"])
+    assert got == _reference(sample, "text")
+    assert got.splitlines() == ["301645", "2/5"] and calls == []
 
 
 def test_resume_from_checkpoint(sample):

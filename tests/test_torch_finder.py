@@ -8,6 +8,7 @@ import dataclasses
 import pytest
 import torch
 
+from advntr_tpu.engine.finder import LocusModelCache as JaxCache
 from advntr_tpu.engine.finder import VNTRFinder as JaxFinder
 from advntr_tpu.engine.simulate import simulate_diploid_reads
 from advntr_tpu.models.reference_vntr import ReferenceVNTR
@@ -19,6 +20,13 @@ from advntr_tpu_torch.synthetic import CSTB_PATTERN, rand_seq
 torch.set_num_threads(1)
 
 READ_LEN = 100
+
+
+def _jax_finder(ref):
+    """The reference's finder with a model cache of its own: its default
+    cache is process-wide and keyed by the locus ID, and the reference's
+    tests build other models of this ID in the same worker process."""
+    return JaxFinder(ref, model_cache=JaxCache())
 
 
 @pytest.fixture(scope="module")
@@ -38,7 +46,7 @@ def locus():
 
 def test_scored_reads_match_reference(locus):
     ref, finder, mapped, unmapped = locus
-    want, _ = JaxFinder(ref).score_reads(mapped, unmapped, READ_LEN)
+    want, _ = _jax_finder(ref).score_reads(mapped, unmapped, READ_LEN)
     got, _ = finder.score_reads(mapped, unmapped, READ_LEN)
     assert len(got) == len(want) > 0
     for g, w in zip(got, want):
@@ -54,7 +62,7 @@ def test_scored_reads_match_reference(locus):
 @pytest.mark.parametrize("accuracy_filter", [False, True])
 def test_find_repeat_count_matches_reference(locus, accuracy_filter):
     ref, finder, mapped, unmapped = locus
-    want = JaxFinder(ref).find_repeat_count(mapped, unmapped, READ_LEN,
+    want = _jax_finder(ref).find_repeat_count(mapped, unmapped, READ_LEN,
                                             accuracy_filter)
     got = finder.find_repeat_count(mapped, unmapped, READ_LEN,
                                    accuracy_filter)
@@ -77,3 +85,55 @@ def test_grouped_gates_equal_per_read_gates(locus, accuracy_filter):
     per_read = finder.find_repeat_count(mapped, unmapped, READ_LEN,
                                         accuracy_filter)
     assert dataclasses.asdict(grouped) == dataclasses.asdict(per_read)
+
+
+def test_struct_kernel_scored_reads_equal_reference(locus, monkeypatch):
+    """``ADVNTR_TPU_KERNEL=struct``: the port's structured decoder scores
+    every read as the reference's struct kernel does, logp bit for bit;
+    the cache keeps one model a kernel (the kernel is in its key)."""
+    ref, finder, mapped, unmapped = locus
+    want, _ = _jax_finder(ref).score_reads(mapped, unmapped, READ_LEN)
+    pallas = finder.get_model(READ_LEN)
+    monkeypatch.setenv("ADVNTR_TPU_KERNEL", "struct")
+    struct = finder.get_model(READ_LEN)
+    assert struct is not pallas and struct.kernel == "struct"
+    assert finder.get_model(READ_LEN) is struct
+    got, _ = finder.score_reads(mapped, unmapped, READ_LEN)
+    assert struct.struct is not None
+    assert len(got) == len(want) > 0
+    for g, w in zip(got, want):
+        for f in dataclasses.fields(g):
+            assert getattr(g, f.name) == getattr(w, f.name), f.name
+
+
+@pytest.mark.parametrize("value", ["xla", "Pallas", "dense"])
+def test_unknown_kernel_raises(locus, monkeypatch, value):
+    _, finder, _, _ = locus
+    monkeypatch.setenv("ADVNTR_TPU_KERNEL", value)
+    with pytest.raises(ValueError, match=repr(value)):
+        finder.get_model(READ_LEN)
+
+
+def test_slim_bank_struct_error_equals_reference(locus, monkeypatch):
+    """A slim bank payload has no dense tables: the structured decoder's
+    model raises the reference's RuntimeError, word for word
+    (tests/test_slim_bank.py)."""
+    from advntr_tpu.engine.finder import LocusModelCache as JaxCache
+    from advntr_tpu.engine.finder import build_locus_payload as jax_payload
+    from advntr_tpu_torch.engine.finder import build_locus_payload
+    from advntr_tpu_torch.models.reference_vntr import ReferenceVNTR as Own
+    ref = locus[0]
+    own = Own(ref.id, ref.pattern, ref.start_point, ref.chromosome)
+    own.repeat_segments = ref.repeat_segments
+    own.left_flanking_region = ref.left_flanking_region[-60:]
+    own.right_flanking_region = ref.right_flanking_region[:60]
+    monkeypatch.setenv("ADVNTR_TPU_KERNEL", "pallas")
+    with pytest.raises(RuntimeError) as want:
+        JaxCache()._build_from_payload(
+            *jax_payload(ref, 6, 60, 0.05, slim=True)).struct_model()
+    lm = LocusModelCache("cpu")._build_from_payload(
+        *build_locus_payload(own, 6, 60, 0.05, slim=True))
+    with pytest.raises(RuntimeError) as got:
+        lm.struct_model()
+    assert str(got.value) == str(want.value)
+    assert "slim bank" in str(got.value)

@@ -918,3 +918,66 @@ def test_mutated_reference_sweep_on_card_equals_cpu(cuda):
     cpu = mutated_reference_sweep(
         ref, chrom, finder=VNTRFinder(ref, Config(), device="cpu"), **kw)
     assert card["rows"] == cpu["rows"]
+
+
+def test_kernels_launch_on_their_tensors_card(cuda):
+    """C-4: with cuda:0 current, B1 (both entries), B2 and local_align
+    handed cuda:1 tensors launch on cuda:1 and give cuda:0's results bit
+    for bit; tensors on two cards in one call raise.  Needs two cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    art, sm = locus_model(*CASES[0])
+    seqs, lengths = _batch(CASES[0], 16, seed=3)
+    probes = torch.as_tensor(dna.encode("CAGCAGCAGCAACAG"))[None]
+    out = {}
+    for index in (0, 1):
+        dev = torch.device("cuda", index)
+        with torch.cuda.device(0):
+            s = TorchStructModel.from_payload(art, sm, dev).as_stack()
+            q, n = seqs[None].to(dev), lengths[None].to(dev)
+            best, bstate, oMI, oXH = _kernels.forward(s, q, n)
+            wide = _kernels.forward(s, q, n, wide=True)
+            path, stats = _kernels.backward(s, n, bstate, oMI, oXH)
+            score, end = _kernels.local_align_passes(
+                q.to(torch.int8), n[0], probes.to(dev, torch.int8), [15],
+                [0])
+            assert torch.cuda.current_device() == 0
+        torch.cuda.synchronize(dev)
+        out[index] = [x.cpu() for x in (best, bstate, oMI, oXH, *wide,
+                                         path, stats, score, end)]
+    for a, b in zip(out[0], out[1]):
+        assert torch.equal(a, b)
+    s0 = TorchStructModel.from_payload(art, sm, torch.device("cuda", 0))
+    with pytest.raises(ValueError, match="2 devices"):
+        _kernels.forward(s0.as_stack(), seqs[None].to("cuda:1"),
+                         lengths[None].to("cuda:1"))
+
+
+def test_struct_path_on_card_equals_cpu(cuda):
+    """The structured decoder (plain torch, ADVNTR_TPU_KERNEL=struct) on
+    the card gives the CPU's results bit for bit: whole reads, a group of
+    two loci, and the checkpointed traceback."""
+    from advntr_tpu_torch.ops.viterbi_ckpt import viterbi_struct_checkpointed
+    from advntr_tpu_torch.ops.viterbi_struct import (StructDeviceModel,
+                                                     viterbi_struct_batch)
+    built = [locus_model(*c) for c in
+             (CASES[0], (["TTGACC", "TTGACC", "TTGTCC"], "GGATCCAT",
+                         "CATGATCG", 3))]
+    seqs, lengths = _batch(CASES[0], 32, seed=7)
+    sls = torch.tensor([sm.suffix_last for _, sm in built])
+    for dev in (torch.device("cpu"), cuda):
+        models = [StructDeviceModel.from_struct(sm, art, dev)
+                  for art, sm in built]
+        q, n = seqs.to(dev), lengths.to(dev)
+        one = viterbi_struct_batch(models[0], q, n, built[0][1].suffix_last)
+        group = viterbi_struct_batch(StructDeviceModel.stack(models),
+                                     torch.stack([q, q]),
+                                     torch.stack([n, n]), sls.to(dev))
+        ckpt = viterbi_struct_checkpointed(models[0], q, n,
+                                           built[0][1].suffix_last,
+                                           segment=5)
+        got = [x.cpu() for x in (*one, *group, *ckpt)]
+        if dev.type == "cpu":
+            want = got
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)

@@ -7,6 +7,7 @@ virtual CPU mesh of tests/conftest.py.  Sharded and unsharded statistics
 must be exactly equal; against the reference, ROADMAP's contract:
 statistics exactly equal, logp within rtol 1e-4 / atol 1e-2."""
 
+import dataclasses
 import io
 import random
 
@@ -20,9 +21,11 @@ import advntr_tpu.ops.pallas_viterbi as pv
 import advntr_tpu.parallel.mesh as jmesh
 from advntr_tpu import dna
 from advntr_tpu.engine import device_analytics as jda
+from advntr_tpu.ops.viterbi_struct import StructDeviceModel as JStruct
 from advntr_tpu_torch.engine import device_analytics as tda
 from advntr_tpu_torch.ops import viterbi_fused as vf
 from advntr_tpu_torch.ops.struct_model import TorchStructModel
+from advntr_tpu_torch.ops.viterbi_struct import StructDeviceModel
 from advntr_tpu_torch.parallel import mesh
 from advntr_tpu_torch.synthetic import locus_model
 
@@ -73,6 +76,21 @@ def group():
                    (art.kind, art.region, art.exp_base, art.unit))
              for art, _ in built]
     return tms, seqs, lens, pallas, metas
+
+
+@pytest.fixture(scope="module")
+def struct_group():
+    """The group's loci as the structured decoder's models: the port's,
+    their metadata and suffix indices, and the reference's flat tables."""
+    built = [locus_model(*case) for case in CASES]
+    structs = [StructDeviceModel.from_struct(sm, art, "cpu")
+               for art, sm in built]
+    metas = [tuple(torch.as_tensor(np.asarray(x)) for x in
+                   (art.kind, art.region, art.exp_base, art.unit))
+             for art, _ in built]
+    sls = [sm.suffix_last for _, sm in built]
+    flats = [JStruct.from_struct(sm, art).flat() for art, sm in built]
+    return structs, metas, sls, flats
 
 
 def _stack(flats, idx):
@@ -163,10 +181,10 @@ def test_stack_to_its_own_device_is_itself(group):
     assert stack.to("cpu") is stack
 
 
-def test_analyzer_uses_sharded_dispatch(monkeypatch, tmp_path):
-    """The counterpart of test_mesh.py::test_analyzer_uses_sharded_dispatch:
-    with 8 devices visible the analyzer's grouped dispatch routes through
-    the mesh, and the text equals the single-device run's and 2/4."""
+def _analyzer_runs(monkeypatch, tmp_path, kernel="pallas"):
+    """The analyzer's text on one simulated 2/4 locus with 8 CPU devices
+    visible and with none, under ``kernel``, and the (loci, reads, kernel)
+    of each sharded dispatch."""
     from advntr_tpu_torch.config import Config
     from advntr_tpu_torch.engine.analyzer import GenomeAnalyzer
     from advntr_tpu_torch.engine.simulate import simulate_diploid_reads
@@ -193,7 +211,7 @@ def test_analyzer_uses_sharded_dispatch(monkeypatch, tmp_path):
     orig = mesh.sharded_grouped_read_stats
 
     def spy(m, *a, **kw):
-        calls.append((m.n_loci, m.n_reads))
+        calls.append((m.n_loci, m.n_reads, kw.get("kernel", "pallas")))
         return orig(m, *a, **kw)
 
     outputs = {}
@@ -204,6 +222,7 @@ def test_analyzer_uses_sharded_dispatch(monkeypatch, tmp_path):
             monkeypatch.setattr(mesh, "sharded_grouped_read_stats", spy)
         else:
             monkeypatch.undo()
+        monkeypatch.setenv("ADVNTR_TPU_KERNEL", kernel)
         buf = io.StringIO()
         analyzer = GenomeAnalyzer([ref], [55], str(tmp_path / tag) + "/",
                                   "text", config=Config(), out=buf,
@@ -211,6 +230,103 @@ def test_analyzer_uses_sharded_dispatch(monkeypatch, tmp_path):
         analyzer.find_repeat_counts_from_alignment_file(bam_path)
         analyzer.model_cache.close()
         outputs[tag] = buf.getvalue()
-    assert calls == [(8, 1)], "sharded dispatch not used with 8 devices"
+    return calls, outputs
+
+
+def test_analyzer_uses_sharded_dispatch(monkeypatch, tmp_path):
+    """The counterpart of test_mesh.py::test_analyzer_uses_sharded_dispatch:
+    with 8 devices visible the analyzer's grouped dispatch routes through
+    the mesh, and the text equals the single-device run's and 2/4."""
+    calls, outputs = _analyzer_runs(monkeypatch, tmp_path)
+    assert calls == [(8, 1, "pallas")], \
+        "sharded dispatch not used with 8 devices"
     assert outputs["sharded"] == outputs["single"]
     assert outputs["sharded"].strip().splitlines() == ["55", "2/4"]
+
+
+def test_analyzer_struct_groups_use_sharded_dispatch(monkeypatch, tmp_path):
+    """Under ``ADVNTR_TPU_KERNEL=struct`` the analyzer's struct groups go
+    through the mesh with ``kernel="struct"``, and give the single-device
+    run's text."""
+    calls, outputs = _analyzer_runs(monkeypatch, tmp_path, "struct")
+    assert calls == [(8, 1, "struct")]
+    assert outputs["sharded"] == outputs["single"]
+    assert outputs["sharded"].strip().splitlines() == ["55", "2/4"]
+
+
+@pytest.mark.parametrize("n_devices,G", [(2, 4), (8, 4), (8, 3)])
+def test_struct_sharded_equals_one_launch_and_reference(
+        group, struct_group, n_devices, G):
+    """``kernel="struct"``: the group split over [cpu] * n_devices equals
+    one grouped run of the structured decoder, and the reference's sharded
+    struct run (reference analyzer.py:609-624), every key bit for bit."""
+    _, seqs, lens, _, metas = group
+    structs, tmetas, sls, flats = struct_group
+    m = mesh.panel_mesh(4, B, devices=[CPU] * n_devices)
+    tseqs, tlens = torch.as_tensor(seqs[:G]), torch.as_tensor(lens[:G])
+    got = mesh.sharded_grouped_read_stats(
+        m, structs[:G], tseqs, tlens, kernel="struct", metas=tmetas[:G],
+        suffix_lasts=sls[:G])
+    whole = tda.read_stats_struct_grouped(
+        StructDeviceModel.stack(structs[:G]), tda.stack_meta(tmetas[:G]),
+        tseqs, tlens, torch.tensor(sls[:G]))
+    assert set(got) == set(whole)
+    for k, v in whole.items():
+        assert got[k].shape == (G, B) and torch.equal(got[k], v), k
+    idx = list(range(G)) + [G - 1] * (4 - G)
+    jm = jmesh.make_mesh(n_loci=m.n_loci, n_reads=m.n_reads,
+                         devices=jax.devices()[:n_devices])
+    ref = jmesh.sharded_grouped_read_stats(
+        jm, _stack(flats, idx), _stack(metas, idx), jnp.asarray(seqs[idx]),
+        jnp.asarray(lens[idx]), suffix_lasts=np.array(sls)[idx],
+        kernel="struct")
+    assert set(ref) == set(got)
+    for k in ref:
+        np.testing.assert_array_equal(got[k].numpy(),
+                                      np.asarray(ref[k])[:G], err_msg=k)
+    with pytest.raises(ValueError, match="unknown kernel"):
+        mesh.sharded_grouped_read_stats(m, structs[:G], tseqs, tlens,
+                                        kernel="dense")
+
+
+def test_dense_mesh_functions_equal_reference(group):
+    """``stack_models``, ``multi_locus_read_stats`` (loci 4 x reads 2) and
+    ``data_parallel_read_stats`` (8 devices) over the port's DenseModel
+    and ``read_stats_dense`` equal the reference's over its DeviceModel
+    and dense ``read_stats``: statistics exactly, logp within rtol 1e-4 /
+    atol 1e-2; and each equals the model's own unsharded run."""
+    _, seqs, lens, _, _ = group
+    arts = [locus_model(*case)[0] for case in CASES]
+    dense = [tda.DenseModel.from_artifact(art, "cpu") for art in arts]
+    jdense = [jda.DeviceModel.from_artifact(art) for art in arts]
+    stacked = mesh.stack_models(dense)
+    for f in dataclasses.fields(tda.DenseModel):
+        assert torch.equal(getattr(stacked, f.name)[2],
+                           getattr(dense[2], f.name)), f.name
+    tseqs, tlens = torch.as_tensor(seqs), torch.as_tensor(lens)
+    m = mesh.make_mesh(n_loci=4, n_reads=2, devices=[CPU] * 8)
+    got = mesh.multi_locus_read_stats(m, stacked, tseqs, tlens)
+    want = jmesh.multi_locus_read_stats(
+        jmesh.make_mesh(n_loci=4, n_reads=2, devices=jax.devices()[:8]),
+        jmesh.stack_models(jdense), jnp.asarray(seqs), jnp.asarray(lens))
+    one = mesh.data_parallel_read_stats(
+        mesh.make_mesh(n_loci=1, n_reads=8, devices=[CPU] * 8), dense[1],
+        tseqs[1], tlens[1])
+    jone = jmesh.data_parallel_read_stats(
+        jmesh.make_mesh(n_loci=1, n_reads=8, devices=jax.devices()[:8]),
+        jdense[1].flat(), jnp.asarray(seqs[1]), jnp.asarray(lens[1]))
+    assert set(got) == set(want) and set(one) == set(jone)
+    for k in want:
+        alone = [tda.read_stats_dense(dense[g], tseqs[g], tlens[g])[k]
+                 for g in range(len(dense))]
+        assert torch.equal(got[k], torch.stack(alone)), k
+        assert torch.equal(one[k], alone[1]), k
+        for mine, ref in ((got[k], want[k]), (one[k], jone[k])):
+            if k == "logp":
+                np.testing.assert_allclose(mine.numpy(), np.asarray(ref),
+                                           **LOGP_TOL)
+            else:
+                np.testing.assert_array_equal(mine.numpy(), np.asarray(ref),
+                                              err_msg=k)
+    with pytest.raises(ValueError, match="do not divide"):
+        mesh.multi_locus_read_stats(m, stacked, tseqs[:3], tlens[:3])

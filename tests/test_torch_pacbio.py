@@ -225,24 +225,39 @@ def test_cli_pacbio_alignment_file(tmp_path):
 
 # ---- reads from a FASTA file through the CLI -------------------------------
 
-def test_cli_pacbio_fasta_equals_reference(tmp_path):
-    """``genotype -p -f`` on a three-locus panel of noisy 3 kb reads in
-    both orientations: the port's text equals the reference analyzer's on
-    the same files, every locus at its simulated genotype; ``--naive``
-    runs the haplotyper path to the same kind of output."""
-    db, fa, truth, _ = write_pacbio_panel(str(tmp_path), n_loci=3,
-                                          coverage=6, long_locus=None)
-    out = str(tmp_path / "out.txt")
-    argv = ["genotype", "-p", "-f", fa, "-m", db, "--working_directory",
-            str(tmp_path), "--disable_logging", "-o", out, "--device", "cpu"]
-    cli.main(argv)
-    text = open(out).read()
+@pytest.fixture(scope="module")
+def pacbio_fasta(tmp_path_factory):
+    """A three-locus panel of noisy 3 kb reads in both orientations, and
+    the reference analyzer's text on it (its CPU default, the struct
+    kernel, decodes every window)."""
+    tmp = tmp_path_factory.mktemp("pacbio_fasta")
+    db, fa, truth, _ = write_pacbio_panel(str(tmp), n_loci=3, coverage=6,
+                                          long_locus=None)
     ref_out = io.StringIO()
     refs = jload(db)
-    JAnalyzer(refs, [r.id for r in refs], str(tmp_path) + "/", "text",
+    JAnalyzer(refs, [r.id for r in refs], str(tmp) + "/", "text",
               config=JConfig().with_platform(pacbio=True),
               out=ref_out).find_repeat_counts_from_pacbio_reads(fa)
-    assert text == ref_out.getvalue()
+    return dict(db=db, fa=fa, truth=truth, ref=ref_out.getvalue())
+
+
+def _pacbio_argv(panel, workdir, out):
+    return ["genotype", "-p", "-f", panel["fa"], "-m", panel["db"],
+            "--working_directory", str(workdir), "--disable_logging", "-o",
+            out, "--device", "cpu"]
+
+
+def test_cli_pacbio_fasta_equals_reference(tmp_path, pacbio_fasta):
+    """``genotype -p -f`` on the panel: the port's text equals the
+    reference analyzer's on the same files, every locus at its simulated
+    genotype; ``--naive`` runs the haplotyper path to the same kind of
+    output."""
+    truth = pacbio_fasta["truth"]
+    out = str(tmp_path / "out.txt")
+    argv = _pacbio_argv(pacbio_fasta, tmp_path, out)
+    cli.main(argv)
+    text = open(out).read()
+    assert text == pacbio_fasta["ref"]
     lines = text.split()
     assert dict(zip(lines[0::2], lines[1::2])) == \
         {str(vid): "%d/%d" % ab for vid, ab in truth.items()}
@@ -250,6 +265,27 @@ def test_cli_pacbio_fasta_equals_reference(tmp_path):
     naive = open(out).read().split()
     assert naive[0::2] == lines[0::2]
     assert all(call == "None" or "/" in call for call in naive[1::2])
+
+
+def test_cli_pacbio_struct_kernel_equals_reference(tmp_path, pacbio_fasta,
+                                                   monkeypatch):
+    """``ADVNTR_TPU_KERNEL=struct``: every window decodes through the
+    port's structured decoder, and the text is the reference analyzer's."""
+    monkeypatch.setenv("ADVNTR_TPU_KERNEL", "struct")
+    calls = []
+    for name in ("read_stats_struct", "read_stats_struct_ckpt"):
+        orig = getattr(tda, name)
+
+        def spy(*a, _orig=orig, _name=name, **k):
+            calls.append(_name)
+            return _orig(*a, **k)
+        monkeypatch.setattr(tda, name, spy)
+    monkeypatch.setattr(tda, "read_stats",
+                        lambda *a, **k: calls.append("pallas"))
+    out = str(tmp_path / "out.txt")
+    cli.main(_pacbio_argv(pacbio_fasta, tmp_path, out))
+    assert open(out).read() == pacbio_fasta["ref"]
+    assert calls and "pallas" not in calls
 
 
 @pytest.mark.parametrize("step", ["model build", "haplotyper"])

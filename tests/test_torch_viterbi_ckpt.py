@@ -315,3 +315,73 @@ def test_ckpt_no_full_read_planes():
     with _LargestTensor() as whole:
         tda.read_stats(tm, seqs, lens)
     assert whole.worst[0] >= L * B * 2 * tm.P
+
+
+def test_run_device_routes_long_reads_struct(monkeypatch):
+    """Under ``ADVNTR_TPU_KERNEL=struct`` run_device decodes with the
+    structured path, and a batch longer than CKPT_TRACEBACK_L through its
+    checkpointed traceback (finder.py:772-781), segments of CKPT_SEGMENT
+    columns, giving the whole-read path's statistics; no B1/B2 path is
+    taken."""
+    monkeypatch.setenv("ADVNTR_TPU_KERNEL", "struct")
+    monkeypatch.setattr(tfinder, "CKPT_TRACEBACK_L", 64)
+    monkeypatch.setattr(tfinder, "CKPT_SEGMENT", 16)
+    cache = tfinder.LocusModelCache("cpu")
+    art, sm, _ = _models((["CAGCAG"] * 3, "ACGTTGCA", "TTACGGAT", 3))
+    lm = cache._upload(art, sm, art.n_states)
+    assert lm.kernel == "struct" and lm.struct is None
+    read = "ACGTTGCA" + "CAGCAG" * 3 + "TTACGGAT"
+    _, batch, lengths = _batch([read, read[:50], "A"], multiple=128,
+                               pad_to=128)
+
+    class _Finder:
+        device = torch.device("cpu")
+        run_device = tfinder.VNTRFinder.run_device
+
+    called = []
+    orig = tda.read_stats_struct_ckpt
+
+    def spy(*a, **k):
+        called.append(k)
+        return orig(*a, **k)
+
+    monkeypatch.setattr(tda, "read_stats_struct_ckpt", spy)
+    monkeypatch.setattr(tda, "read_stats_ckpt", None)
+    monkeypatch.setattr(tda, "read_stats", None)
+    stats = _Finder().run_device(lm, batch, lengths, return_paths=True)
+    assert called == [{"segment": 16, "return_path": True}]
+    whole = tda.read_stats_struct(
+        lm.struct_model(), lm.model.art_meta, torch.as_tensor(batch),
+        torch.as_tensor(lengths), sm.suffix_last, return_path=True)
+    assert set(stats) == set(whole)
+    for key in whole:
+        np.testing.assert_array_equal(stats[key], whole[key].numpy())
+    called.clear()
+    _Finder().run_device(lm, batch[:, :64], np.minimum(lengths, 64))
+    assert called == []
+
+
+def test_struct_ckpt_no_full_read_planes():
+    """The structured checkpointed traceback allocates no tensor the size
+    of the whole read's value planes: every tensor its operations return
+    stays within one segment's (K, B, 2P + nb) planes, where the
+    whole-read path's planes are (L - 1, B, 2P + nb)."""
+    from advntr_tpu_torch.ops.viterbi_struct import StructDeviceModel
+    art, sm, _ = _models((["CAGCAG", "CAGCAG", "CAACAG"], "ACGTTGCA",
+                          "TTACGGAT", 6))
+    m = StructDeviceModel.from_struct(sm, art, "cpu")
+    meta = tuple(torch.as_tensor(np.asarray(x)) for x in
+                 (art.kind, art.region, art.exp_base, art.unit))
+    B, L, segment = 4, 512, 64
+    S = 2 * sm.P + sm.nb
+    rng = random.Random(12)
+    reads = ["".join(rng.choice("ACGT") for _ in range(L)) for _ in range(B)]
+    _, batch, lengths = _batch(reads, pad_to=L)
+    seqs, lens = torch.as_tensor(batch), torch.as_tensor(lengths)
+    with _LargestTensor() as seen:
+        tda.read_stats_struct_ckpt(m, meta, seqs, lens, sm.suffix_last,
+                                   segment=segment)
+    assert seen.worst[0] <= max(segment * B * S, S * S), seen.worst
+    with _LargestTensor() as whole:
+        tda.read_stats_struct(m, meta, seqs, lens, sm.suffix_last)
+    assert whole.worst[0] >= (L - 1) * B * S

@@ -466,3 +466,79 @@ def test_reads_past_the_column_limit_raise(grouped):
             tda.read_stats_grouped([tm], seqs[None], lengths[None])
         else:
             tda.read_stats(tm, seqs, lengths)
+
+
+def test_kernel_wrappers_launch_under_their_tensors_device(monkeypatch):
+    """C-4: each wrapper of ops/_kernels.py makes its tensors' device the
+    current one (``torch.cuda.device``) around its C call and the stream
+    lookup, since the kernels' attribute calls and launches act on the
+    current device; tensors on two devices raise ValueError before any
+    call.  A fake library records the device current at each call (CPU
+    tensors here, so the device entered is ``cpu``)."""
+    import types
+
+    from advntr_tpu_torch.ops import _kernels
+    current = [None]
+
+    class FakeDevice:
+        def __init__(self, device):
+            self.device = torch.device(device)
+
+        def __enter__(self):
+            self.saved, current[0] = current[0], self.device
+
+        def __exit__(self, *exc):
+            current[0] = self.saved
+
+    calls = []
+
+    class FakeLib:
+        def __getattr__(self, name):
+            def call(*args):
+                calls.append((name, current[0]))
+                return 0
+            return call
+
+    monkeypatch.setattr(torch.cuda, "device", FakeDevice)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: types.SimpleNamespace(
+                            multi_processor_count=132))
+    monkeypatch.setattr(_kernels, "build",
+                        lambda: {src: FakeLib() for src in _kernels.SOURCES})
+    monkeypatch.setattr(_kernels, "_stream", lambda dev: calls.append(
+        ("stream", current[0])) or 0)
+    art, sm, pm, tm = _models(CASES[0])
+    stack = TorchStructModel.stack([tm])
+    seqs = torch.zeros(1, 4, 16, dtype=torch.int8)
+    ones = torch.ones(1, 4, dtype=torch.int32)
+    planes = torch.zeros(1, 16, 4, 2 * tm.P, dtype=torch.int16)
+    hub = torch.zeros(1, 16, 4, 2 * tm.nb, dtype=torch.int16)
+    reads = torch.zeros(1, 4, 64, dtype=torch.int8)
+    probes = torch.zeros(1, 16, dtype=torch.int8)
+    _kernels.forward(stack, seqs, ones)
+    _kernels.forward(stack, seqs, ones, wide=True)
+    _, _, _, _, state = _kernels.forward_segment(stack, seqs, ones, t0=0)
+    _kernels.forward_segment(stack, seqs, ones, state=state, t0=16)
+    _kernels.backward(stack, ones, ones, planes, hub)
+    _kernels.backward_segment(stack, ones, ones, planes, hub, 16, ones)
+    _kernels.local_align_passes(reads, ones[0], probes, [8], [0])
+    cpu = torch.device("cpu")
+    names = [name for name, _ in calls if name != "stream"]
+    assert names == ["advntr_viterbi_forward"] * 4 + \
+        ["advntr_viterbi_backward"] * 2 + ["advntr_local_align"]
+    assert calls and all(dev == cpu for _, dev in calls), calls
+    assert current[0] is None
+    meta = torch.device("meta")
+    calls.clear()
+    with pytest.raises(ValueError, match="2 devices"):
+        _kernels.forward(stack, seqs.to(meta), ones)
+    with pytest.raises(ValueError, match="2 devices"):
+        _kernels.forward_segment(stack, seqs, ones,
+                                 state=tuple(x.to(meta) for x in state),
+                                 t0=16)
+    with pytest.raises(ValueError, match="2 devices"):
+        _kernels.backward(stack, ones, ones, planes.to(meta), hub.to(meta))
+    with pytest.raises(ValueError, match="2 devices"):
+        _kernels.local_align_passes(reads, ones[0], probes.to(meta), [8],
+                                    [0])
+    assert calls == []
