@@ -22,6 +22,7 @@ import sys
 from advntr_tpu_torch.config import Config
 from advntr_tpu_torch import __version__
 from advntr_tpu_torch.device import DEVICES, resolve_device
+from advntr_tpu_torch.utils import profiler
 
 DEFAULT_ILLUMINA_DB = "vntr_data/hg19_selected_VNTRs_Illumina.db"
 DEFAULT_PACBIO_DB = "vntr_data/hg19_selected_VNTRs_Pacbio.db"
@@ -134,6 +135,16 @@ def _err(msg: str):
 
 
 def genotype(args) -> None:
+    """One genotype call, the root span of its spans; its stage summary is
+    logged at INFO as it ends."""
+    try:
+        with profiler.span(profiler.CALL):
+            _genotype(args)
+    finally:
+        logging.info(profiler.stage_summary())
+
+
+def _genotype(args) -> None:
     from advntr_tpu_torch.models.db import load_unique_vntrs_data
     from advntr_tpu_torch.engine.analyzer import GenomeAnalyzer
 

@@ -41,7 +41,7 @@ from advntr_tpu_torch.config import Config, DEFAULT_CONFIG
 from advntr_tpu_torch.io import fasta
 from advntr_tpu_torch.io.bam import BamReader, get_reference_genome_style
 from advntr_tpu_torch.io.sam import open_alignment
-from advntr_tpu_torch.utils.profiler import stage_summary, time_usage
+from advntr_tpu_torch.utils.profiler import count, span
 from advntr_tpu_torch.utils.quality import is_low_quality_read
 from advntr_tpu_torch.engine import device_analytics as da
 from advntr_tpu_torch.engine.finder import (GenotypeResult, HostStepError,
@@ -196,7 +196,7 @@ class GenomeAnalyzer:
 
     # ---- recruitment ------------------------------------------------------
 
-    @time_usage
+    @span("advntr.recruit")
     def recruit_unmapped_reads(self, alignment_file: str,
                                illumina: bool = True):
         """One pass over the unmapped reads for all target loci.
@@ -219,7 +219,7 @@ class GenomeAnalyzer:
                       for name, _ in results.get(vid, [])]
                 for vid in self.target_vntr_ids}
 
-    @time_usage
+    @span("advntr.engine.mapped")
     def mapped_candidates(self, bam: BamReader, finder: VNTRFinder,
                           read_length: int):
         """Indexed fetch of mapped candidate reads for one locus
@@ -250,7 +250,9 @@ class GenomeAnalyzer:
             fetched = bam.fetch(chromosome, max(0, vntr_start - 500),
                                 vntr_end)
         out = []
+        n_fetched = 0
         for read in fetched:
+            n_fetched += 1
             if read.is_unmapped or read.is_duplicate:
                 continue
             if len(read.seq) < min_len:
@@ -266,6 +268,8 @@ class GenomeAnalyzer:
                                    self.config.low_quality_bp_to_discard_read):
                 continue
             out.append((read.query_name, read.seq))
+        count("mapped.fetched", n_fetched)
+        count("mapped.kept", len(out))
         return out
 
     # ---- result checkpoint/resume (analyzer.py:262-296, 421-453) ----------
@@ -397,7 +401,6 @@ class GenomeAnalyzer:
                     for key in model_keys:
                         self.model_cache.evict(*key)
 
-        logging.info(stage_summary())
         self._emit_header()
         records = {}
         for vid in self.target_vntr_ids:
@@ -491,38 +494,49 @@ class GenomeAnalyzer:
         (parallel/mesh.py, reference analyzer.py:592-623).  Models built
         for the ``struct`` kernel score through the structured decoder
         (reference analyzer.py:609-624)."""
-        max_len = max(max(len(r) for r in prepped[vid][3]) for vid in chunk)
-        L_pad = ((max_len + 31) // 32) * 32
-        max_rows = max(len(prepped[vid][3]) for vid in chunk)
-        b_floor = 512 if len(wave) > 16 else 8
-        B_pad = max(b_floor, 1 << (max_rows - 1).bit_length())
-        batches, lens = [], []
-        for vid in chunk:
-            finder, lm, reads, rows, row_info = prepped[vid]
-            b, ln = finder.pad_rows(rows, length_bucket=1, pad_to=L_pad,
-                                    b_pad=B_pad)
-            batches.append(b)
-            lens.append(ln)
-        seqs = torch.as_tensor(np.stack(batches), device=self.device)
-        lengths = torch.as_tensor(np.stack(lens), device=self.device)
-        lms = [prepped[vid][1] for vid in chunk]
-        mesh = self._get_panel_mesh(group_size, B_pad)
-        if lms[0].kernel == "struct":
-            structs = [lm.struct_model() for lm in lms]
-            metas = [lm.model.art_meta for lm in lms]
-            suffix_lasts = [lm.sm.suffix_last for lm in lms]
+        with span("advntr.decode.stack"):
+            max_len = max(max(len(r) for r in prepped[vid][3])
+                          for vid in chunk)
+            L_pad = ((max_len + 31) // 32) * 32
+            max_rows = max(len(prepped[vid][3]) for vid in chunk)
+            b_floor = 512 if len(wave) > 16 else 8
+            B_pad = max(b_floor, 1 << (max_rows - 1).bit_length())
+            batches, lens = [], []
+            for vid in chunk:
+                finder, lm, reads, rows, row_info = prepped[vid]
+                b, ln = finder.pad_rows(rows, length_bucket=1, pad_to=L_pad,
+                                        b_pad=B_pad)
+                batches.append(b)
+                lens.append(ln)
+            batch, lens = np.stack(batches), np.stack(lens)
+        G = len(chunk)
+        count("decode.rows", sum(len(prepped[vid][3]) for vid in chunk))
+        count("decode.rows_padded", G * B_pad)
+        count("decode.bases", int(sum(lens[g, :len(prepped[vid][3])].sum()
+                                      for g, vid in enumerate(chunk))))
+        count("decode.cells", G * B_pad * L_pad)
+        with span("advntr.decode.launch"):
+            seqs = torch.as_tensor(batch, device=self.device)
+            lengths = torch.as_tensor(lens, device=self.device)
+            lms = [prepped[vid][1] for vid in chunk]
+            mesh = self._get_panel_mesh(group_size, B_pad)
+            if lms[0].kernel == "struct":
+                structs = [lm.struct_model() for lm in lms]
+                metas = [lm.model.art_meta for lm in lms]
+                suffix_lasts = [lm.sm.suffix_last for lm in lms]
+                if mesh is not None:
+                    return pmesh.sharded_grouped_read_stats(
+                        mesh, structs, seqs, lengths, kernel="struct",
+                        metas=metas, suffix_lasts=suffix_lasts)
+                return da.read_stats_struct_grouped(
+                    StructDeviceModel.stack(structs), da.stack_meta(metas),
+                    seqs, lengths,
+                    torch.tensor(suffix_lasts, device=self.device))
+            models = [lm.model for lm in lms]
             if mesh is not None:
-                return pmesh.sharded_grouped_read_stats(
-                    mesh, structs, seqs, lengths, kernel="struct",
-                    metas=metas, suffix_lasts=suffix_lasts)
-            return da.read_stats_struct_grouped(
-                StructDeviceModel.stack(structs), da.stack_meta(metas), seqs,
-                lengths, torch.tensor(suffix_lasts, device=self.device))
-        models = [lm.model for lm in lms]
-        if mesh is not None:
-            return pmesh.sharded_grouped_read_stats(mesh, models, seqs,
-                                                    lengths)
-        return da.read_stats_grouped(models, seqs, lengths)
+                return pmesh.sharded_grouped_read_stats(mesh, models, seqs,
+                                                        lengths)
+            return da.read_stats_grouped(models, seqs, lengths)
 
     def _get_panel_mesh(self, group_size: int, batch: int):
         """(loci, reads) device mesh for the grouped dispatch, or None when
@@ -536,15 +550,17 @@ class GenomeAnalyzer:
 
     def _collect_group(self, chunk, prepped, stats, read_length, results,
                        accuracy_filter, average_coverage):
-        stats = {k: v.cpu().numpy() for k, v in stats.items()}
-        for g, vid in enumerate(chunk):
-            finder, lm, reads, rows, row_info = prepped[vid]
-            per = {k: v[g] for k, v in stats.items()}
-            covered, flanking, n_sel, _ = finder.counts_from_stats(
-                reads, row_info, per, read_length, accuracy_filter)
-            results[vid] = (finder.genotype_from_counts(
-                covered, flanking, n_sel, accuracy_filter,
-                average_coverage), False)
+        with span("advntr.decode.wait"):
+            stats = {k: v.cpu().numpy() for k, v in stats.items()}
+        with span("advntr.decode.gates"):
+            for g, vid in enumerate(chunk):
+                finder, lm, reads, rows, row_info = prepped[vid]
+                per = {k: v[g] for k, v in stats.items()}
+                covered, flanking, n_sel, _ = finder.counts_from_stats(
+                    reads, row_info, per, read_length, accuracy_filter)
+                results[vid] = (finder.genotype_from_counts(
+                    covered, flanking, n_sel, accuracy_filter,
+                    average_coverage), False)
 
     # ---- frameshift (analyzer.py:654-669) ----------------------------------
 
@@ -579,23 +595,24 @@ class GenomeAnalyzer:
         the haplotyper: ``HostStepError``) yields the locus's Error row,
         as in the reference; anchoring and scoring run on the device,
         where a failure propagates."""
-        finder = self.vntr_finder[vid]
-        try:
-            mapped_spanning = None
-            if bam is not None:
-                with host_step():
-                    mapped_spanning = \
-                        finder.get_spanning_reads_of_aligned_pacbio_reads(bam)
-            result = finder.find_repeat_count_pacbio(
-                unmapped_reads, accuracy_filter=accuracy_filter,
-                naive=naive, mapped_spanning=mapped_spanning)
-        except HostStepError as error:
-            logging.error("Error genotyping VNTR %s: %s. Skipping.", vid,
-                          error)
-            self.print_genotype(vid, GenotypeResult(None, 0, 0, 0, 0),
-                                encountered_error=True)
-            return
-        self.print_genotype(vid, result)
+        with span("advntr.locus", vid=vid):
+            finder = self.vntr_finder[vid]
+            try:
+                mapped_spanning = None
+                if bam is not None:
+                    with host_step():
+                        mapped_spanning = finder.\
+                            get_spanning_reads_of_aligned_pacbio_reads(bam)
+                result = finder.find_repeat_count_pacbio(
+                    unmapped_reads, accuracy_filter=accuracy_filter,
+                    naive=naive, mapped_spanning=mapped_spanning)
+            except HostStepError as error:
+                logging.error("Error genotyping VNTR %s: %s. Skipping.", vid,
+                              error)
+                self.print_genotype(vid, GenotypeResult(None, 0, 0, 0, 0),
+                                    encountered_error=True)
+                return
+            self.print_genotype(vid, result)
 
     def find_repeat_counts_from_pacbio_alignment_file(
             self, alignment_file: str, log_pacbio_reads: bool = False,
@@ -618,7 +635,9 @@ class GenomeAnalyzer:
             min_matches=self.config.min_keyword_matches,
             max_reads_per_locus=self.config.max_reads_per_locus,
             device=self.device)
-        results, sequences = filter_reads(filt, fasta.read_any(read_file))
+        with span("advntr.recruit"):
+            results, sequences = filter_reads(filt,
+                                              fasta.read_any(read_file))
         self._emit_header()
         for vid in self.target_vntr_ids:
             reads = [(name, sequences[name])

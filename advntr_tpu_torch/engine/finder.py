@@ -53,7 +53,7 @@ from advntr_tpu_torch.models.profile import profile_for_repeats
 from advntr_tpu_torch.models.struct_compiler import (StructModel,
                                                      build_structured,
                                                      pad_structured)
-from advntr_tpu_torch.utils.profiler import time_usage
+from advntr_tpu_torch.utils.profiler import count, span
 from advntr_tpu_torch.engine import device_analytics as da
 from advntr_tpu_torch.ops.align import anchor_probes_batch, local_align
 from advntr_tpu_torch.ops.struct_model import TorchStructModel
@@ -191,6 +191,7 @@ class LocusModel:
         return self.model.shape_key() + (self.n_pad,)
 
 
+@span("advntr.model.build")
 def build_locus_payload(ref_vntr, copies: int, flank_size: int,
                         error_rate: float, slim: bool | None = None):
     """Host-side model construction for one locus (finder.py:128-143):
@@ -198,11 +199,15 @@ def build_locus_payload(ref_vntr, copies: int, flank_size: int,
     extraction.  Pure numpy output, so it can run in worker processes."""
     left = ref_vntr.left_flanking_region[-flank_size:]
     right = ref_vntr.right_flanking_region[:flank_size]
-    trans, emis = profile_for_repeats(
-        list(ref_vntr.get_repeat_segments()), error_rate)
-    g = build_read_matcher(left, right, trans, emis, copies, error_rate)
-    art = compile_graph(g)
-    sm = build_structured(g, art)
+    with span("advntr.model.build.profile"):
+        trans, emis = profile_for_repeats(
+            list(ref_vntr.get_repeat_segments()), error_rate)
+    with span("advntr.model.build.graph"):
+        g = build_read_matcher(left, right, trans, emis, copies, error_rate)
+    with span("advntr.model.build.compile"):
+        art = compile_graph(g)
+    with span("advntr.model.build.struct"):
+        sm = build_structured(g, art)
     if slim if slim is not None else SLIM_BANK:
         art = dataclasses.replace(art, **{f: None for f in _SLIM_FIELDS})
     return art, sm
@@ -334,10 +339,12 @@ class LocusModelCache:
         it is."""
         key = self._key(ref_vntr, copies, flank_size, error_rate)
         if key in self._cache:
+            count("model.hit")
             return self._cache[key]
-        with host_step():
-            padded = self._pad(*self._payload(key, ref_vntr))
-        self._cache[key] = self._upload(*padded)
+        with span("advntr.model", vid=ref_vntr.id):
+            with host_step():
+                padded = self._pad(*self._payload(key, ref_vntr))
+            self._cache[key] = self._upload(*padded)
         return self._cache[key]
 
     def _payload(self, key, ref_vntr):
@@ -348,17 +355,23 @@ class LocusModelCache:
         built = False
         fut = self._futures.pop(key, None)
         if fut is not None:
-            payload, built = fut.result(), True
+            with span("advntr.model.pool_wait"):
+                payload, built = fut.result(), True
+            count("model.pool_hit")
         if payload is None and path is not None and os.path.exists(path):
-            payload = load_reference_payload(path)
+            with span("advntr.model.bank_read"):
+                payload = load_reference_payload(path)
+            count("model.bank_hit")
         if payload is None:
             payload, built = build_locus_payload(ref_vntr, *key[1:4]), True
+            count("model.built")
         if built and path is not None and not os.path.exists(path):
-            os.makedirs(self.bank_dir, exist_ok=True)
-            tmp = "%s.tmp.%d" % (path, os.getpid())
-            with gzip.open(tmp, "wb", compresslevel=1) as fh:
-                pickle.dump(payload, fh)
-            os.replace(tmp, path)
+            with span("advntr.model.bank_write"):
+                os.makedirs(self.bank_dir, exist_ok=True)
+                tmp = "%s.tmp.%d" % (path, os.getpid())
+                with gzip.open(tmp, "wb", compresslevel=1) as fh:
+                    pickle.dump(payload, fh)
+                os.replace(tmp, path)
         return payload
 
     def evict(self, ref_vntr, copies: int, flank_size: int,
@@ -379,6 +392,7 @@ class LocusModelCache:
                          self._coarse_bucket(art.n_states,
                                              self.state_bucket))
 
+    @span("advntr.model.pad")
     def _pad(self, art, sm):
         """(art, sm padded to the buckets, the padded state count)."""
         n_pad = self._state_pad(art)
@@ -388,6 +402,7 @@ class LocusModelCache:
                           else max(self.unit_bucket, 32))
         return art, pad_structured(sm, art, P_pad, C_pad), n_pad
 
+    @span("advntr.model.upload")
     def _upload(self, art, sm, n_pad) -> LocusModel:
         return LocusModel(
             model=TorchStructModel.from_payload(art, sm, self.device),
@@ -607,6 +622,7 @@ class VNTRFinder:
 
     # -- scoring -------------------------------------------------------------
 
+    @span("advntr.engine.prepare")
     def prepare_rows(self, mapped_reads, unmapped_reads):
         """Batch prep (finder.py:545-611): N-filter, the DNN pre-screen of
         unmapped orientations where the locus has a DNN model, both
@@ -786,26 +802,28 @@ class VNTRFinder:
         (finder.py:793-796).  Where the reference decodes every long
         lattice with its struct kernel, the port's ``pallas`` models keep
         B1/B2's checkpointed path."""
-        seqs = torch.as_tensor(batch, device=self.device)
-        lens = torch.as_tensor(lengths, device=self.device)
-        path = {"return_path": True} if return_paths else {}
-        if lm.dense is not None:
-            stats = da.read_stats_dense(lm.dense, seqs, lens, **path)
-        elif lm.kernel == "struct":
-            read_stats = da.read_stats_struct
-            if seqs.shape[1] > CKPT_TRACEBACK_L:
-                read_stats = functools.partial(da.read_stats_struct_ckpt,
-                                               segment=CKPT_SEGMENT)
-            stats = read_stats(lm.struct_model(), lm.model.art_meta, seqs,
-                               lens, lm.sm.suffix_last, **path)
-        elif seqs.shape[1] > CKPT_TRACEBACK_L:
-            stats = da.read_stats_ckpt(lm.model, seqs, lens,
-                                       segment=CKPT_SEGMENT, **path)
-        else:
-            stats = da.read_stats(lm.model, seqs, lens, **path)
-        return {k: v.cpu().numpy() for k, v in stats.items()}
+        with span("advntr.decode.launch"):
+            seqs = torch.as_tensor(batch, device=self.device)
+            lens = torch.as_tensor(lengths, device=self.device)
+            path = {"return_path": True} if return_paths else {}
+            if lm.dense is not None:
+                stats = da.read_stats_dense(lm.dense, seqs, lens, **path)
+            elif lm.kernel == "struct":
+                read_stats = da.read_stats_struct
+                if seqs.shape[1] > CKPT_TRACEBACK_L:
+                    read_stats = functools.partial(
+                        da.read_stats_struct_ckpt, segment=CKPT_SEGMENT)
+                stats = read_stats(lm.struct_model(), lm.model.art_meta,
+                                   seqs, lens, lm.sm.suffix_last, **path)
+            elif seqs.shape[1] > CKPT_TRACEBACK_L:
+                stats = da.read_stats_ckpt(lm.model, seqs, lens,
+                                           segment=CKPT_SEGMENT, **path)
+            else:
+                stats = da.read_stats(lm.model, seqs, lens, **path)
+        with span("advntr.decode.wait"):
+            return {k: v.cpu().numpy() for k, v in stats.items()}
 
-    @time_usage
+    @span("advntr.score")
     def score_reads(self, mapped_reads, unmapped_reads, read_length: int,
                     model=None, length_bucket: int = 32,
                     return_paths: bool = False):
@@ -817,7 +835,12 @@ class VNTRFinder:
                                                   unmapped_reads)
         if not rows:
             return [], None
-        batch, lengths = self.pad_rows(rows, length_bucket)
+        with span("advntr.decode.stack"):
+            batch, lengths = self.pad_rows(rows, length_bucket)
+        count("decode.rows", len(rows))
+        count("decode.rows_padded", batch.shape[0])
+        count("decode.bases", int(lengths[:len(rows)].sum()))
+        count("decode.cells", batch.size)
         stats = self.run_device(lm, batch, lengths, return_paths)
         return self.collect_scored(reads, row_info, stats), stats
 
@@ -969,7 +992,6 @@ class VNTRFinder:
                                             read_length, model=updated)
         return new_selected
 
-    @time_usage
     def find_repeat_count(self, mapped_reads, unmapped_reads,
                           read_length: int | None = None,
                           accuracy_filter: bool = False,
@@ -978,22 +1000,23 @@ class VNTRFinder:
                           em: bool = False) -> GenotypeResult:
         """Genotype from candidate reads (vntr_finder.py:789-887), after
         one model update under ``update`` (Baum-Welch under ``em``)."""
-        if read_length is None:
-            lens = sorted(len(s) for _, s in
-                          (mapped_reads + unmapped_reads)[:5])
-            read_length = lens[len(lens) // 2] if lens else 150
-        if update and em:
-            selected = self.em_update_and_reselect(mapped_reads,
-                                                   unmapped_reads,
-                                                   read_length)
-        elif update:
-            selected = self.update_and_reselect(mapped_reads, unmapped_reads,
+        with span("advntr.locus", vid=self.reference_vntr.id):
+            if read_length is None:
+                lens = sorted(len(s) for _, s in
+                              (mapped_reads + unmapped_reads)[:5])
+                read_length = lens[len(lens) // 2] if lens else 150
+            if update and em:
+                selected = self.em_update_and_reselect(mapped_reads,
+                                                       unmapped_reads,
+                                                       read_length)
+            elif update:
+                selected = self.update_and_reselect(
+                    mapped_reads, unmapped_reads, read_length)
+            else:
+                selected, _ = self.select_reads(mapped_reads, unmapped_reads,
                                                 read_length)
-        else:
-            selected, _ = self.select_reads(mapped_reads, unmapped_reads,
-                                            read_length)
-        return self.genotype_from_selected(selected, accuracy_filter,
-                                           average_coverage)
+            return self.genotype_from_selected(selected, accuracy_filter,
+                                               average_coverage)
 
     def select_from_scored(self, scored, read_length: int):
         """Recruitment gates over already-scored reads."""
@@ -1207,6 +1230,7 @@ class VNTRFinder:
         spanning.append((name, read_str[start_l:start_r + flank_size]))
         length_dist.append(start_r - (start_l + flank_size))
 
+    @span("advntr.engine.windows")
     def get_spanning_reads_of_unaligned_pacbio_reads(self, unmapped_reads):
         """Batched flank anchoring: both orientations of every long read are
         aligned against both 100bp flank probes in four passes of one

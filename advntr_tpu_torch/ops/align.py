@@ -25,6 +25,7 @@ import torch
 
 from advntr_tpu_torch import dna
 from advntr_tpu_torch.ops import _kernels
+from advntr_tpu_torch.utils.profiler import span
 
 
 def local_align(read: str, probe: str):
@@ -217,6 +218,7 @@ def local_align_passes(reads, lengths, probes, probe_lengths, read_sets):
     raise ValueError(f"no local_align_passes for device {reads.device}")
 
 
+@span("advntr.anchor")
 def anchor_probes_batch(read_codes_list, probes, device="cuda"):
     """Host wrapper: for each probe, for each encoded read, the best
     (score, start, end) of the probe's local alignment: every probe

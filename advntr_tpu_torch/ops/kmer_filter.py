@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from advntr_tpu_torch import dna
+from advntr_tpu_torch.utils.profiler import count, span
 
 # reads per device chunk at most (the reference's default)
 DEFAULT_CHUNK = 1024
@@ -164,7 +165,9 @@ class RecruitmentFilter:
             for li, kw in zip(self.table.locus_ids, self.table.full_keywords):
                 self._full_by_locus.setdefault(int(li), []).append(kw)
 
+    @span("advntr.recruit.filter")
     def process_batch(self, names: list[str], seqs: list[str]) -> None:
+        count("recruit.reads", len(names))
         if not names or len(self.table.codes) == 0:
             return
         b_cap = recruit_chunk(len(self.table.loci))
@@ -234,6 +237,7 @@ class RecruitmentFilter:
                           seqs[b], int(vals[b, m]))
         self._inflight = []
 
+    @span("advntr.recruit.drain")
     def results(self):
         """{locus: [(read_name, count), ...] ranked by count desc, capped},
         plus {read_name: sequence} for every reported read."""
@@ -247,4 +251,5 @@ class RecruitmentFilter:
             out[locus] = ranked
             for name, _ in ranked:
                 reported[name] = self._sequences[name]
+        count("recruit.hits", len(reported))
         return out, reported

@@ -2944,16 +2944,23 @@ def run_cli(argv) -> tuple[str, float]:
 
 
 def stage_totals() -> str:
-    from advntr_tpu_torch.utils.profiler import STAGE_COUNTS, STAGE_TOTALS
-    return ", ".join(f"{k} {v:.3f} s over {STAGE_COUNTS[k]} calls"
-                     for k, v in sorted(STAGE_TOTALS.items(),
-                                        key=lambda kv: -kv[1]))
+    """Each span's seconds over its count, summed over the genotype calls
+    since ``reset_stages`` and the spans outside a call."""
+    from advntr_tpu_torch.utils import profiler
+    totals: dict = {}
+    for t in profiler.finished_calls() + [profiler.ambient()]:
+        for name, (n, secs, _) in t.spans.items():
+            row = totals.setdefault(name, [0, 0.0])
+            row[0] += n
+            row[1] += secs
+    return ", ".join(f"{k} {v:.3f} s over {n} calls"
+                     for k, (n, v) in sorted(totals.items(),
+                                             key=lambda kv: -kv[1][1]))
 
 
 def reset_stages() -> None:
-    from advntr_tpu_torch.utils.profiler import STAGE_COUNTS, STAGE_TOTALS
-    STAGE_TOTALS.clear()
-    STAGE_COUNTS.clear()
+    from advntr_tpu_torch.utils import profiler
+    profiler.reset()
 
 
 def profiled(fn):

@@ -46,9 +46,6 @@ OWN_PKG = Path(advntr_tpu_torch.__file__).parent
 
 # every module copied from the reference; None: the text is the original's
 # once the import lines are normalised.  The named, intended differences:
-# - utils/profiler.py: ``device_trace`` wraps torch.profiler and ends on a
-#   CUDA synchronize where the original wraps jax.profiler, and the module
-#   docstring says so; everything before that function is the original's;
 # - models/reference_vntr.py has none in its text: its two seams (the numpy
 #   Viterbi and the segment splitter) are modules of the port's own, held
 #   to their originals by test_seam_functions_equal_their_originals;
@@ -59,7 +56,6 @@ OWN_PKG = Path(advntr_tpu_torch.__file__).parent
 INTENDED = {
     "dna.py": None, "config.py": None,
     "utils/quality.py": None,
-    "utils/profiler.py": "@contextlib.contextmanager",
     "models/graph.py": None, "models/compiler.py": None,
     "models/struct_compiler.py": None, "models/profile.py": None,
     "models/msa.py": None, "models/reference_vntr.py": None,
@@ -88,13 +84,9 @@ def test_copy_text_equals_original(module):
         # compare what precedes the rewritten function, less the module
         # docstring, and hold the rewrite to what it is said to be
         tail = copy.split(cut)[1]
-        if module == "utils/profiler.py":
-            assert "torch.cuda.synchronize()" in tail and "jax" not in copy
-            assert "jax.profiler" in original.split(cut)[1]
-        else:
-            sklearn = re.compile(r"^\s*from sklearn", re.M)
-            assert sklearn.search(original.split(cut)[1])
-            assert not sklearn.search(copy) and "linkage(" in tail
+        sklearn = re.compile(r"^\s*from sklearn", re.M)
+        assert sklearn.search(original.split(cut)[1])
+        assert not sklearn.search(copy) and "linkage(" in tail
         original, copy = (text.split(cut)[0].split('"""\n', 1)[1]
                           for text in (original, copy))
     diff = [ln for ln in difflib.unified_diff(original.splitlines(),
