@@ -9,10 +9,15 @@ between their two flank anchors (ops/align.py) and then decoded against a
 model as wide as the longest window, through the checkpointed traceback
 where the window is longer than ``CKPT_TRACEBACK_L`` columns.
 
-Model "weights" are the numpy ``(art, sm)`` payload that
-``build_locus_payload`` writes into ``model_bank/*.pkl.gz``, pickled with
-this package's classes.  ``load_reference_payload`` also reads a bank file
-that the reference package wrote, without importing that package.  With
+Model "weights" are the numpy ``(art, sm)`` payload of
+``build_locus_payload``.  A bank file ``model_bank/*.pkl.gz`` holds its
+decode payload: the artifact without its O(n^2) tables (``DENSE_FIELDS``),
+which only the ``struct`` decoder and the path expansion of ``-fs`` and
+``-u`` read; those load on demand (``DenseSource``) from a companion file
+``*.dense.pkl.gz`` or a rebuild of the locus.  Payloads are pickled with
+this package's classes; ``load_reference_payload`` also reads a bank file
+that the reference package wrote, full or slim, without importing that
+package.  With
 ``Config.trained_hmms_dir`` set, a locus's model comes from its
 pomegranate-JSON checkpoint ``<vid>_<read length>.json`` where one exists:
 structured when the extractor takes its topology, else the dense fallback
@@ -79,11 +84,16 @@ def _default_kernel() -> str:
                          f"{KERNELS}")
     return kernel
 
-# Slim bank payloads drop the O(n^2) artifact tables; the port needs only
-# the O(n) fields, so it reads slim and full banks alike (finder.py:115-125)
-SLIM_BANK = os.environ.get("ADVNTR_TPU_SLIM_BANK", "0") == "1"
-_SLIM_FIELDS = ("log_T", "t_unit_starts", "t_unit_ends", "hop_choice",
+# The artifact's O(n^2) tables: a bank payload leaves them out, since the
+# default decode reads only the O(n) fields (finder.py:115-125)
+DENSE_FIELDS = ("log_T", "t_unit_starts", "t_unit_ends", "hop_choice",
                 "closure_parent")
+
+
+def has_dense_tables(art) -> bool:
+    """Whether the artifact carries its dense tables (a decode payload's
+    artifact does not)."""
+    return all(getattr(art, f) is not None for f in DENSE_FIELDS)
 
 
 @dataclasses.dataclass
@@ -147,7 +157,8 @@ class LocusModel:
     structured tables of the kernels or, for an imported model the
     structured extractor refuses, the dense fallback's.  Under the
     ``struct`` kernel the structured decoder's tables are built from
-    ``sm`` at first use (``struct_model``)."""
+    ``sm`` at first use (``struct_model``).  The artifact's dense tables
+    are filled from ``source`` the first time a mode reads them."""
     model: TorchStructModel | None     # padded device tables
     n_pad: int                     # state count padded to the bucket
     art: ModelArtifact | None = None   # unpadded host artifact (names)
@@ -155,32 +166,30 @@ class LocusModel:
     kernel: str = "pallas"         # the decoder this model was built for
     sm: StructModel | None = None  # padded host StructModel
     struct: StructDeviceModel | None = None   # built by struct_model()
+    source: DenseSource | None = None  # where art's dense tables come from
+
+    def dense_art(self) -> ModelArtifact:
+        """The artifact with its dense tables, filled once from
+        ``source``."""
+        if self.source is not None:
+            self.art = self.source.fill(self.art)
+            self.source = None
+        return self.art
 
     def struct_model(self) -> StructDeviceModel | None:
         """The structured decoder's tables on the model's device, built at
         the first call and kept (finder.py:79-91): their dense (S, S)
-        in-edge table needs the artifact's dense ``log_T``, which a slim
-        bank payload lacks."""
+        in-edge table reads the artifact's dense ``log_T``."""
         if self.struct is None and self.sm is not None:
-            if getattr(self.art, "log_T", None) is None:
-                raise RuntimeError(
-                    "slim bank payload lacks the dense tables the struct/"
-                    "ckpt kernels need; rebuild without ADVNTR_TPU_SLIM_BANK"
-                    " for this path")
-            self.struct = StructDeviceModel.from_struct(self.sm, self.art,
-                                                        self.model.device)
+            self.struct = StructDeviceModel.from_struct(
+                self.sm, self.dense_art(), self.model.device)
         return self.struct
 
     def visited_states(self, path) -> list[str]:
         """A decoded artifact-space path as the full visited-state names
-        (``expand_path``), for the modes that read paths as text."""
-        if self.art is None or self.art.hop_choice is None:
-            raise ValueError(
-                "this locus model carries no hop_choice (a slim bank "
-                "payload): -fs and -u expand decoded paths into state "
-                "names and need the full payload; rebuild the bank without "
-                "ADVNTR_TPU_SLIM_BANK=1")
-        return expand_path(self.art, path)
+        (``expand_path``, through the dense ``hop_choice``), for the modes
+        that read paths as text."""
+        return expand_path(self.dense_art(), path)
 
     def shape_key(self) -> tuple:
         """Same-key loci share kernel shapes and score as one group (the
@@ -193,10 +202,11 @@ class LocusModel:
 
 @span("advntr.model.build")
 def build_locus_payload(ref_vntr, copies: int, flank_size: int,
-                        error_rate: float, slim: bool | None = None):
+                        error_rate: float):
     """Host-side model construction for one locus (finder.py:128-143):
     profile estimation, graph build, silent-state elimination, structured
-    extraction.  Pure numpy output, so it can run in worker processes."""
+    extraction.  Pure numpy output, so it can run in worker processes; the
+    artifact is whole (``decode_payload`` is what a bank file holds)."""
     left = ref_vntr.left_flanking_region[-flank_size:]
     right = ref_vntr.right_flanking_region[:flank_size]
     with span("advntr.model.build.profile"):
@@ -208,32 +218,55 @@ def build_locus_payload(ref_vntr, copies: int, flank_size: int,
         art = compile_graph(g)
     with span("advntr.model.build.struct"):
         sm = build_structured(g, art)
-    if slim if slim is not None else SLIM_BANK:
-        art = dataclasses.replace(art, **{f: None for f in _SLIM_FIELDS})
     return art, sm
+
+
+def decode_payload(art, sm):
+    """The payload a bank file holds: the artifact without its dense
+    tables, and the structured model."""
+    return dataclasses.replace(art, **{f: None for f in DENSE_FIELDS}), sm
+
+
+def dense_tables(art) -> dict:
+    """The artifact's dense tables, as a companion file holds them."""
+    return {f: getattr(art, f) for f in DENSE_FIELDS}
 
 
 def bank_payload_path(bank_dir: str, vid, copies: int, flank_size: int,
                       error_rate: float) -> str:
     """The reference's per-locus bank file name (finder.py:146-155), so
     a bank directory the reference wrote is found and read."""
-    suffix = ".slim" if SLIM_BANK else ""
-    return os.path.join(bank_dir, "model_%s_%s_%s_%s%s.pkl.gz"
-                        % (vid, copies, flank_size, error_rate, suffix))
+    return os.path.join(bank_dir, "model_%s_%s_%s_%s.pkl.gz"
+                        % (vid, copies, flank_size, error_rate))
+
+
+def dense_payload_path(path: str) -> str:
+    """The companion of a bank file, which holds its dense tables."""
+    return path[:-len(".pkl.gz")] + ".dense.pkl.gz"
+
+
+def write_payload(path: str, obj) -> int:
+    """Pickle ``obj`` into ``path`` gzipped and publish it atomically (tmp
+    file, then ``os.replace``), so that concurrent builders and readers
+    never see a torn pickle; the compressed bytes written."""
+    tmp = "%s.tmp.%d" % (path, os.getpid())
+    with gzip.open(tmp, "wb", compresslevel=1) as fh:
+        pickle.dump(obj, fh)
+    size = os.path.getsize(tmp)
+    os.replace(tmp, path)
+    return size
 
 
 def build_and_save_payload(ref_vntr, copies: int, flank_size: int,
                            error_rate: float, path: str) -> str:
-    """Build one locus payload and publish it atomically (tmp file, then
-    ``os.replace``), so that concurrent builders and readers never see a
-    torn pickle: the worker of ``buildbank`` (finder.py:158-172)."""
+    """Build one locus payload and bank it, the dense tables' companion
+    first, so that a bank file found means its companion is there too:
+    the worker of ``buildbank`` (finder.py:158-172)."""
     if os.path.exists(path):
         return path
-    payload = build_locus_payload(ref_vntr, copies, flank_size, error_rate)
-    tmp = "%s.tmp.%d" % (path, os.getpid())
-    with gzip.open(tmp, "wb", compresslevel=1) as fh:
-        pickle.dump(payload, fh)
-    os.replace(tmp, path)
+    art, sm = build_locus_payload(ref_vntr, copies, flank_size, error_rate)
+    write_payload(dense_payload_path(path), dense_tables(art))
+    write_payload(path, decode_payload(art, sm))
     return path
 
 
@@ -260,9 +293,39 @@ class _BankUnpickler(pickle.Unpickler):
 
 def load_reference_payload(path: str):
     """The (art, sm) payload of one bank file, written by this package or
-    by the reference's ``buildbank``, as this package's dataclasses."""
+    by the reference's ``buildbank``, as this package's dataclasses; also
+    reads a companion's dense tables."""
     with gzip.open(path, "rb") as fh:
         return _BankUnpickler(fh).load()
+
+
+@dataclasses.dataclass
+class DenseSource:
+    """Where a locus model's dense tables come from when a mode reads them
+    (``LocusModel.dense_art``): the bank's companion file, else a rebuild
+    of the locus.  A companion missing from the bank is written then."""
+    ref_vntr: object
+    key: tuple                 # (copies, flank_size, error_rate)
+    path: str | None           # the companion, where the cache has a bank
+
+    def fill(self, art) -> ModelArtifact:
+        """``art`` with its dense tables."""
+        with span("advntr.model.dense"):
+            if not has_dense_tables(art):
+                if self.path is not None and os.path.exists(self.path):
+                    tables = load_reference_payload(self.path)
+                    count("model.dense_read")
+                    return dataclasses.replace(art, **tables)
+                full, _ = build_locus_payload(self.ref_vntr, *self.key)
+                count("model.dense_rebuild")
+                art = dataclasses.replace(art, **dense_tables(full))
+            if self.path is not None and not os.path.exists(self.path):
+                try:
+                    write_payload(self.path, dense_tables(art))
+                    count("model.dense_write")
+                except OSError as error:   # a bank the call cannot write
+                    logging.warning("dense tables not banked: %s", error)
+        return art
 
 
 def payload_from_arrays(art_fields: dict, sm_fields: dict):
@@ -343,13 +406,23 @@ class LocusModelCache:
             return self._cache[key]
         with span("advntr.model", vid=ref_vntr.id):
             with host_step():
-                padded = self._pad(*self._payload(key, ref_vntr))
-            self._cache[key] = self._upload(*padded)
-        return self._cache[key]
+                payload, built = self._payload(key, ref_vntr)
+                padded = self._pad(*payload)
+            lm = self._upload(*padded)
+            path = self._bank_path(key)
+            # a full payload read from the bank carries its dense tables;
+            # a built one's companion is written when a mode reads them
+            if not has_dense_tables(payload[0]) or (built and path):
+                lm.source = DenseSource(
+                    ref_vntr, key[1:4],
+                    dense_payload_path(path) if path else None)
+            self._cache[key] = lm
+        return lm
 
     def _payload(self, key, ref_vntr):
-        """The locus's (art, sm): from the pool, the bank or a build here
-        (a build is written to the bank)."""
+        """(the locus's (art, sm), whether it was built): from the pool,
+        the bank or a build here.  A build keeps its whole artifact and
+        banks its decode payload."""
         path = self._bank_path(key)
         payload = None
         built = False
@@ -362,17 +435,16 @@ class LocusModelCache:
             with span("advntr.model.bank_read"):
                 payload = load_reference_payload(path)
             count("model.bank_hit")
+            count("model.bank_bytes_read", os.path.getsize(path))
         if payload is None:
             payload, built = build_locus_payload(ref_vntr, *key[1:4]), True
             count("model.built")
         if built and path is not None and not os.path.exists(path):
             with span("advntr.model.bank_write"):
                 os.makedirs(self.bank_dir, exist_ok=True)
-                tmp = "%s.tmp.%d" % (path, os.getpid())
-                with gzip.open(tmp, "wb", compresslevel=1) as fh:
-                    pickle.dump(payload, fh)
-                os.replace(tmp, path)
-        return payload
+                n = write_payload(path, decode_payload(*payload))
+            count("model.bank_bytes_written", n)
+        return payload, built
 
     def evict(self, ref_vntr, copies: int, flank_size: int,
               error_rate: float) -> None:

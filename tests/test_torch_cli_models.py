@@ -82,9 +82,11 @@ def cstb(tmp_path_factory):
 def test_buildbank_precompiles_and_reused(cstb, tmp_path, monkeypatch,
                                           capsys):
     """test_cli_end_to_end.py:109 on the port with two spawned workers:
-    the reference's file name, a rerun that builds nothing, and a warm
-    genotype run with no host model build; the reference's buildbank
-    writes the same file name."""
+    the reference's file name (beside it the dense tables' companion), a
+    rerun that builds nothing, and a warm genotype run with no host model
+    build; the reference's buildbank writes the same file name."""
+    import advntr_tpu_torch.engine.finder as finder
+
     wd = str(tmp_path / "own")
     argv = ["buildbank", "-m", cstb["db"], "--working_directory", wd,
             "-l", "100", "-t", "2"]
@@ -92,16 +94,16 @@ def test_buildbank_precompiles_and_reused(cstb, tmp_path, monkeypatch,
     assert "1 loci to compile (0 already banked), 2 workers" in \
         capsys.readouterr().out
     bank = os.path.join(wd, "model_bank")
-    files = os.listdir(bank)
-    assert len(files) == 1 and files[0].startswith("model_301645_")
+    files = sorted(os.listdir(bank))
     jax_cli.main(["buildbank", "-m", cstb["db"], "--working_directory",
                   str(tmp_path / "ref"), "-l", "100", "-t", "1"])
-    assert os.listdir(tmp_path / "ref" / "model_bank") == files
+    ref_files = os.listdir(tmp_path / "ref" / "model_bank")
+    assert len(ref_files) == 1 and ref_files[0].startswith("model_301645_")
+    assert files == sorted(ref_files +
+                           [finder.dense_payload_path(ref_files[0])])
     cli.main(argv)
     assert "0 loci to compile (1 already banked)" in capsys.readouterr().out
-    assert os.listdir(bank) == files
-
-    import advntr_tpu_torch.engine.finder as finder
+    assert sorted(os.listdir(bank)) == files
 
     def boom(*a, **k):
         raise AssertionError("host model build ran despite a warm bank")
@@ -120,8 +122,8 @@ def test_buildbank_selects_loci_by_id(tmp_path, capsys):
     cli.main(["buildbank", "-m", path, "--working_directory",
               str(tmp_path), "-l", "60", "-t", "1", "-vid", "2"])
     assert "1 loci to compile" in capsys.readouterr().out
-    assert [f.split("_")[1] for f in
-            os.listdir(tmp_path / "model_bank")] == ["2"]
+    assert {f.split("_")[1] for f in
+            os.listdir(tmp_path / "model_bank")} == {"2"}
 
 
 def _rand_seq(seed, n):

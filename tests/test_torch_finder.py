@@ -112,28 +112,3 @@ def test_unknown_kernel_raises(locus, monkeypatch, value):
     monkeypatch.setenv("ADVNTR_TPU_KERNEL", value)
     with pytest.raises(ValueError, match=repr(value)):
         finder.get_model(READ_LEN)
-
-
-def test_slim_bank_struct_error_equals_reference(locus, monkeypatch):
-    """A slim bank payload has no dense tables: the structured decoder's
-    model raises the reference's RuntimeError, word for word
-    (tests/test_slim_bank.py)."""
-    from advntr_tpu.engine.finder import LocusModelCache as JaxCache
-    from advntr_tpu.engine.finder import build_locus_payload as jax_payload
-    from advntr_tpu_torch.engine.finder import build_locus_payload
-    from advntr_tpu_torch.models.reference_vntr import ReferenceVNTR as Own
-    ref = locus[0]
-    own = Own(ref.id, ref.pattern, ref.start_point, ref.chromosome)
-    own.repeat_segments = ref.repeat_segments
-    own.left_flanking_region = ref.left_flanking_region[-60:]
-    own.right_flanking_region = ref.right_flanking_region[:60]
-    monkeypatch.setenv("ADVNTR_TPU_KERNEL", "pallas")
-    with pytest.raises(RuntimeError) as want:
-        JaxCache()._build_from_payload(
-            *jax_payload(ref, 6, 60, 0.05, slim=True)).struct_model()
-    lm = LocusModelCache("cpu")._build_from_payload(
-        *build_locus_payload(own, 6, 60, 0.05, slim=True))
-    with pytest.raises(RuntimeError) as got:
-        lm.struct_model()
-    assert str(got.value) == str(want.value)
-    assert "slim bank" in str(got.value)

@@ -198,13 +198,17 @@ def test_pacbio_bam_genotype_end_to_end(tmp_path):
     db_file = _mapped_db(tmp_path)
     bam_path, _ = _write_mapped(tmp_path)
     texts = []
-    for analyzer_cls, load, config, kw in (
+    # each package banks its models in a working directory of its own: the
+    # port's bank files hold decode payloads, which the reference's struct
+    # kernel cannot decode
+    for analyzer_cls, load, config, kw, wd in (
             (GenomeAnalyzer, load_unique_vntrs_data, Config(),
-             {"device": "cpu"}),
-            (JAnalyzer, jload, JConfig(), {})):
+             {"device": "cpu"}, tmp_path / "own"),
+            (JAnalyzer, jload, JConfig(), {}, tmp_path / "ref")):
         out = io.StringIO()
+        wd.mkdir()
         analyzer = analyzer_cls(
-            load(db_file), [70186], str(tmp_path) + "/", "text",
+            load(db_file), [70186], str(wd) + "/", "text",
             config=config.with_platform(pacbio=True), out=out,
             input_file=bam_path, **kw)
         analyzer.find_repeat_counts_from_pacbio_alignment_file(bam_path)
@@ -333,7 +337,10 @@ def test_cli_pacbio_host_error_gives_the_error_row(tmp_path, monkeypatch,
     text = open(out).read()
     ref_out = io.StringIO()
     refs = jload(db)
-    JAnalyzer(refs, [r.id for r in refs], str(tmp_path) + "/", "text",
+    # the reference banks its models apart from the port's decode payloads
+    ref_wd = tmp_path / "ref"
+    ref_wd.mkdir()
+    JAnalyzer(refs, [r.id for r in refs], str(ref_wd) + "/", "text",
               config=JConfig().with_platform(pacbio=True),
               out=ref_out).find_repeat_counts_from_pacbio_reads(
                   fa, naive=naive)
