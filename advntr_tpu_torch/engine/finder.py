@@ -422,7 +422,11 @@ class LocusModelCache:
     def _payload(self, key, ref_vntr):
         """(the locus's (art, sm), whether it was built): from the pool,
         the bank or a build here.  A build keeps its whole artifact and
-        banks its decode payload."""
+        banks its decode payload.  A build here counts its artifact's
+        states (``model.build_states``) and the bytes of its dense tables
+        (``model.build_dense_bytes``), which the cache holds until the
+        wave's ``evict``; a pool's build adds to neither, since its
+        ``advntr.model.build`` span stays in the worker's process."""
         path = self._bank_path(key)
         payload = None
         built = False
@@ -439,6 +443,9 @@ class LocusModelCache:
         if payload is None:
             payload, built = build_locus_payload(ref_vntr, *key[1:4]), True
             count("model.built")
+            count("model.build_states", len(payload[0].names))
+            count("model.build_dense_bytes", sum(
+                t.nbytes for t in dense_tables(payload[0]).values()))
         if built and path is not None and not os.path.exists(path):
             with span("advntr.model.bank_write"):
                 os.makedirs(self.bank_dir, exist_ok=True)
