@@ -48,7 +48,8 @@ from advntr_tpu_torch.engine.finder import (GenotypeResult, HostStepError,
                                             LocusModelCache, VNTRFinder,
                                             host_step)
 from advntr_tpu_torch.engine.recruitment import (build_recruitment_filter,
-                                                 filter_reads)
+                                                 filter_reads,
+                                                 filter_unmapped)
 from advntr_tpu_torch.ops.viterbi_struct import StructDeviceModel
 from advntr_tpu_torch.parallel import mesh as pmesh
 
@@ -208,13 +209,9 @@ class GenomeAnalyzer:
             max_reads_per_locus=self.config.max_reads_per_locus,
             device=self.device)
 
-        def unmapped_iter():
-            with open_alignment(alignment_file, self.ref_filename) as bam:
-                for rec in bam.fetch_unmapped():
-                    yield rec.query_name, rec.seq
-
-        results, sequences = filter_reads(filt, unmapped_iter(),
-                                          batch_size=1024)
+        with open_alignment(alignment_file, self.ref_filename) as reader:
+            results, sequences = filter_unmapped(filt, reader,
+                                                 batch_size=1024)
         return {vid: [(name, sequences[name])
                       for name, _ in results.get(vid, [])]
                 for vid in self.target_vntr_ids}

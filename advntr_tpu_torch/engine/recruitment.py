@@ -10,6 +10,12 @@ reads the keywords are the 80bp flank substrings instead.
 
 from __future__ import annotations
 
+import logging
+import subprocess
+
+from advntr_tpu_torch import native_bridge
+from advntr_tpu_torch.io.bam import BamReader
+from advntr_tpu_torch.io.bam_scan import scan_unmapped
 from advntr_tpu_torch.ops.kmer_filter import RecruitmentFilter
 
 
@@ -87,3 +93,24 @@ def filter_reads(filt: RecruitmentFilter, read_iter, batch_size: int = 1024):
     if names:
         filt.process_batch(names, seqs)
     return filt.results()
+
+
+def filter_unmapped(filt: RecruitmentFilter, reader,
+                    batch_size: int = 1024):
+    """``filter_reads`` over an alignment file's unmapped records.  A BAM's
+    are decoded in bulk (``io/bam_scan.py``): the same reads in the same
+    batches.  SAM and CRAM records, and a BAM's where the scan's native
+    walk cannot be built, are parsed one at a time."""
+    if isinstance(reader, BamReader):
+        try:
+            native_bridge.load_bam_scan()
+        except (OSError, subprocess.CalledProcessError) as error:
+            logging.warning("no native BAM scan (%s); parsing %s record by "
+                            "record", error, reader.path)
+        else:
+            for reads in scan_unmapped(reader, batch_size):
+                filt.process_packed(reads)
+            return filt.results()
+    return filter_reads(filt, ((rec.query_name, rec.seq)
+                               for rec in reader.fetch_unmapped()),
+                        batch_size)

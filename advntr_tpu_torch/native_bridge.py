@@ -1,16 +1,20 @@
 """ctypes bridges to the port's native host code.
 
-Counterpart of advntr_tpu/native_bridge.py.  Each source is the port's own
-copy, compiled with g++ on first use into ``advntr_tpu_torch/build/``:
+Counterpart of advntr_tpu/native_bridge.py.  Each source is compiled with
+g++ on first use into ``advntr_tpu_torch/build/``; the first two are the
+port's own copies of the reference's sources, the third is the port's
+alone:
 
 - ``load_closure``: ``csrc/model_closure.cc``, the three max-plus closure
   loops of ``models/compiler.compile_graph`` (the compiler falls back to
   its numpy loops when no toolchain is found);
 - ``SparseViterbiModel``: ``csrc/viterbi_sparse.cc``, the sparse Viterbi
   over the full silent-state graph in float64 on one CPU core, the
-  baseline the reference's kernels are timed against (bench.py).
+  baseline the reference's kernels are timed against (bench.py);
+- ``load_bam_scan``: ``csrc/bam_scan.cc``, the record walk of
+  ``io/bam_scan.py`` (recruitment's unmapped pass over a BAM).
 
-Both are host C++, not device kernels.
+All three are host C++, not device kernels.
 """
 
 from __future__ import annotations
@@ -27,9 +31,12 @@ _BUILD_DIR = os.path.join(_PKG, "build")
 _CLOSURE_SO = os.path.join(_BUILD_DIR, "libmodel_closure.so")
 _SRC = os.path.join(_PKG, "csrc", "viterbi_sparse.cc")
 _SO = os.path.join(_BUILD_DIR, "libviterbi_sparse.so")
+_SCAN_SRC = os.path.join(_PKG, "csrc", "bam_scan.cc")
+_SCAN_SO = os.path.join(_BUILD_DIR, "libbam_scan.so")
 
 _closure_lib = None
 _lib = None
+_scan_lib = None
 
 
 def _build(src: str, so: str) -> None:
@@ -69,6 +76,29 @@ def load_closure():
         f64, i32, i16, i16,     # log_start, start_choice, s_us, s_ue
     ]
     _closure_lib = lib
+    return lib
+
+
+def load_bam_scan():
+    """Load (building on first use) the BAM record walk of
+    ``io/bam_scan.py``.  Raises on toolchain failure; the caller then
+    parses the records one at a time."""
+    global _scan_lib
+    if _scan_lib is not None:
+        return _scan_lib
+    _build(_SCAN_SRC, _SCAN_SO)
+    lib = ctypes.CDLL(_SCAN_SO)
+    i64 = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+    u8 = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+    lib.bam_scan_chunk.restype = ctypes.c_int
+    lib.bam_scan_chunk.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64,    # buf, n
+        u8, i64,                            # names, name_off
+        u8, i64,                            # packed, seq_off
+        np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS"),  # lengths
+        i64,                                # out
+    ]
+    _scan_lib = lib
     return lib
 
 

@@ -156,8 +156,8 @@ class RecruitmentFilter:
         self._locus_dev = torch.as_tensor(self.table.locus_ids, device=device)
         self._hits: dict = {locus: {} for locus in self.table.loci}
         self._sequences: dict = {}
-        # queued top-M results (names, seqs, vals, idx), collected in
-        # dispatch order so the device runs chunks back to back
+        # queued top-M results (n, name_of, seq_of, vals, idx),
+        # collected in dispatch order so the device runs chunks back to back
         self._inflight: list = []
         self._full_by_locus: dict[int, list[str]] | None = None
         if self.table.needs_verify:
@@ -174,17 +174,40 @@ class RecruitmentFilter:
         for s in range(0, len(names), b_cap):
             self._process_chunk(names[s:s + b_cap], seqs[s:s + b_cap])
 
+    @span("advntr.recruit.filter")
+    def process_packed(self, reads) -> None:
+        """``process_batch`` for a batch of a BAM's records as the bulk
+        scanner holds them (``io/bam_scan.PackedReads``): the same chunks
+        and uploads, and a read's name and bases made into strings only
+        where the filter keeps it."""
+        count("recruit.reads", len(reads))
+        if not len(reads) or len(self.table.codes) == 0:
+            return
+        b_cap = recruit_chunk(len(self.table.loci))
+        for s in range(0, len(reads), b_cap):
+            part = reads.take(s, s + b_cap)
+            batch, lengths = part.codes(multiple=128)
+            self._enqueue(batch, lengths, len(part), part.name, part.seq)
+
     def _process_chunk(self, names: list[str], seqs: list[str]) -> None:
         rows = [dna.encode(s.upper()) for s in seqs]
         batch, lengths = dna.pad_batch(rows, multiple=128)
-        if batch.shape[1] < self.table.k:
-            return
         b_pad = 1 << (len(rows) - 1).bit_length()
         if b_pad != len(rows):
             batch = np.concatenate([batch, np.full(
                 (b_pad - len(rows), batch.shape[1]), 4, dtype=batch.dtype)])
             lengths = np.concatenate(
                 [lengths, np.zeros(b_pad - len(rows), dtype=lengths.dtype)])
+        self._enqueue(batch, lengths, len(rows), names.__getitem__,
+                      seqs.__getitem__)
+
+    def _enqueue(self, batch: np.ndarray, lengths: np.ndarray, n: int,
+                 name_of, seq_of) -> None:
+        """Count one chunk's ``n`` reads (the rows of ``batch`` past ``n``
+        are padding) on the device; ``name_of(b)`` and ``seq_of(b)`` give
+        row ``b``'s strings where the filter keeps or recounts it."""
+        if batch.shape[1] < self.table.k:
+            return
         batch_d = torch.as_tensor(batch, device=self.device)
         lengths_d = torch.as_tensor(lengths, device=self.device)
         n_loci = len(self.table.loci)
@@ -192,18 +215,18 @@ class RecruitmentFilter:
             vals, idx = count_topk(
                 self._codes_dev, self._locus_dev, batch_d, lengths_d,
                 self.table.k, n_loci, self.table.max_dup, self.top_m)
-            self._inflight.append((names, seqs, vals, idx))
+            self._inflight.append((n, name_of, seq_of, vals, idx))
             return
         counts = count_hits(
             self._codes_dev, self._locus_dev, batch_d, lengths_d,
             self.table.k, n_loci, self.table.max_dup).cpu().numpy()
-        counts = counts[: len(rows)]
+        counts = counts[:n]
         if self._full_by_locus is not None:
             # long keywords: recount exactly on the host for device hits
             rb, rl = np.nonzero(counts)
             counts = np.zeros_like(counts)
             for b, li in zip(rb, rl):
-                seq = seqs[b].upper()
+                seq = seq_of(b).upper()
                 c = 0
                 for kw in self._full_by_locus.get(int(li), ()):
                     start = 0
@@ -216,7 +239,7 @@ class RecruitmentFilter:
                 counts[b, li] = c
         hit_reads, hit_loci = np.nonzero(counts >= self.min_matches)
         for b, li in zip(hit_reads, hit_loci):
-            self._add(self.table.loci[li], names[b], seqs[b],
+            self._add(self.table.loci[li], name_of(b), seq_of(b),
                       int(counts[b, li]))
 
     def _add(self, locus, name: str, seq: str, count: int) -> None:
@@ -228,13 +251,13 @@ class RecruitmentFilter:
         self._sequences[name] = seq
 
     def _drain(self) -> None:
-        for names, seqs, vals, idx in self._inflight:
-            vals = vals.cpu().numpy()[: len(names)]
-            idx = idx.cpu().numpy()[: len(names)]
+        for n, name_of, seq_of, vals, idx in self._inflight:
+            vals = vals.cpu().numpy()[:n]
+            idx = idx.cpu().numpy()[:n]
             rb, rm = np.nonzero(vals >= self.min_matches)
             for b, m in zip(rb, rm):
-                self._add(self.table.loci[int(idx[b, m])], names[b],
-                          seqs[b], int(vals[b, m]))
+                self._add(self.table.loci[int(idx[b, m])], name_of(b),
+                          seq_of(b), int(vals[b, m]))
         self._inflight = []
 
     @span("advntr.recruit.drain")

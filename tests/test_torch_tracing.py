@@ -279,6 +279,9 @@ def test_illumina_spans_counters_and_output(cstb, monkeypatch):
     assert t.counters["model.built"] == 1 and "model.bank_hit" not in \
         t.counters
     assert t.counters["recruit.hits"] <= t.counters["recruit.reads"]
+    # a BAM's unmapped reads all come through the bulk scan
+    assert t.counters["recruit.scan_unmapped"] == t.counters["recruit.reads"]
+    assert t.counters["recruit.scan_records"] >= t.counters["recruit.reads"]
     assert t.counters["mapped.kept"] <= t.counters["mapped.fetched"]
     # a bank hit: read, not built
     profiler.enable(records=True)
@@ -326,6 +329,10 @@ def test_long_read_spans(tmp_path, monkeypatch):
     t = profiler.finished_calls()[-1]
     assert t.counters["model.built"] == 2
     assert t.counters["decode.rows"] <= t.counters["decode.rows_padded"]
+    # reads from a FASTA file: no BAM scan
+    assert t.counters["recruit.reads"] > 0
+    assert "recruit.scan_records" not in t.counters
+    assert "recruit.scan_unmapped" not in t.counters
 
 
 def test_no_old_stage_api():
