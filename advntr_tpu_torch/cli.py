@@ -263,8 +263,9 @@ def build_bank(args) -> None:
     import multiprocessing
     import time
 
-    from advntr_tpu_torch.engine.finder import (bank_payload_path,
-                                                build_and_save_payload)
+    from advntr_tpu_torch.models.bank import (bank_payload_path,
+                                              build_and_save_payload,
+                                              model_key)
     from advntr_tpu_torch.models.db import load_unique_vntrs_data
 
     config = Config().with_platform(args.pacbio, args.nanopore)
@@ -280,13 +281,10 @@ def build_bank(args) -> None:
     read_length = args.read_length
     jobs = []
     for ref in reference_vntrs:
-        # the (copies, flank, error) key of the analyzer's get_model
-        copies = int(round(read_length / len(ref.pattern) + 0.5))
-        path = bank_payload_path(bank_dir, ref.id, copies, read_length,
-                                 config.max_error_rate)
+        key = model_key(ref, read_length, config.max_error_rate)
+        path = bank_payload_path(bank_dir, ref.id, *key[1:])
         if not os.path.exists(path):
-            jobs.append((ref, copies, read_length, config.max_error_rate,
-                         path))
+            jobs.append((*key, path))
     workers = args.threads if args.threads and args.threads > 0 \
         else (os.cpu_count() or 2)
     print("buildbank: %d loci to compile (%d already banked), %d workers"

@@ -9,8 +9,7 @@ Counterpart of advntr_tpu/engine/analyzer.py (genotype paths).  Illumina:
 2. loci run in waves: per locus, an indexed BAM fetch of mapped candidates
    plus the recruited unmapped reads, prepared on the host;
 3. same-shape loci score as groups of G on the device, one launch of each
-   kernel per group (under ``ADVNTR_TPU_KERNEL=struct``, one sequence of
-   the structured decoder's launches a column per group), and each
+   kernel per group (engine/locus_model.py chooses the decoder), and each
    finished group appends to a JSONL checkpoint, so an interrupted run
    resumes where it stopped.
 
@@ -43,14 +42,13 @@ from advntr_tpu_torch.io.bam import BamReader, get_reference_genome_style
 from advntr_tpu_torch.io.sam import open_alignment
 from advntr_tpu_torch.utils.profiler import count, span
 from advntr_tpu_torch.utils.quality import is_low_quality_read
-from advntr_tpu_torch.engine import device_analytics as da
-from advntr_tpu_torch.engine.finder import (GenotypeResult, HostStepError,
-                                            LocusModelCache, VNTRFinder,
-                                            host_step)
+from advntr_tpu_torch.engine.finder import GenotypeResult, VNTRFinder
+from advntr_tpu_torch.engine.locus_model import (HostStepError,
+                                                 LocusModelCache,
+                                                 decode_group, host_step)
 from advntr_tpu_torch.engine.recruitment import (build_recruitment_filter,
                                                  filter_reads,
                                                  filter_unmapped)
-from advntr_tpu_torch.ops.viterbi_struct import StructDeviceModel
 from advntr_tpu_torch.parallel import mesh as pmesh
 
 
@@ -383,20 +381,16 @@ class GenomeAnalyzer:
                 read_length = self._median_read_length(bam)
                 for w0 in range(0, len(pending), wave_size):
                     wave = pending[w0:w0 + wave_size]
-                    model_keys = []
-                    for vid in wave:
-                        finder = self.vntr_finder[vid]
-                        key = (finder.reference_vntr,
-                               finder.get_copies_for_hmm(read_length),
-                               read_length, self.config.max_error_rate)
-                        self.model_cache.schedule(*key)
-                        model_keys.append(key)
+                    model_keys = [self.vntr_finder[vid].model_key(
+                        read_length) for vid in wave]
+                    for key in model_keys:
+                        self.model_cache.schedule(key)
                     results.update(self._genotype_loci_grouped(
                         wave, bam, unmapped_by_vid, read_length,
                         accuracy_filter, average_coverage, update, em,
                         ckpt_path=ckpt_path))
                     for key in model_keys:
-                        self.model_cache.evict(*key)
+                        self.model_cache.evict(key)
 
         self._emit_header()
         records = {}
@@ -444,7 +438,7 @@ class GenomeAnalyzer:
                 logging.error("Error preparing VNTR %s: %s.", vid, error)
                 results[vid] = error_result
                 continue
-            if update or (rows and lm.dense is not None):
+            if update or (rows and lm.shape_key() is None):
                 try:
                     results[vid] = (finder.find_repeat_count(
                         mapped, unmapped_by_vid[vid],
@@ -488,9 +482,8 @@ class GenomeAnalyzer:
         repeats would only be discarded, so a short chunk scores as is.
         Where more than one device of the analyzer's type is visible, the
         group is split over a (loci, reads) mesh of them
-        (parallel/mesh.py, reference analyzer.py:592-623).  Models built
-        for the ``struct`` kernel score through the structured decoder
-        (reference analyzer.py:609-624)."""
+        (parallel/mesh.py, reference analyzer.py:592-623); the group's
+        models choose their decoder (``locus_model.decode_group``)."""
         with span("advntr.decode.stack"):
             max_len = max(max(len(r) for r in prepped[vid][3])
                           for vid in chunk)
@@ -513,27 +506,10 @@ class GenomeAnalyzer:
                                       for g, vid in enumerate(chunk))))
         count("decode.cells", G * B_pad * L_pad)
         with span("advntr.decode.launch"):
-            seqs = torch.as_tensor(batch, device=self.device)
-            lengths = torch.as_tensor(lens, device=self.device)
-            lms = [prepped[vid][1] for vid in chunk]
-            mesh = self._get_panel_mesh(group_size, B_pad)
-            if lms[0].kernel == "struct":
-                structs = [lm.struct_model() for lm in lms]
-                metas = [lm.model.art_meta for lm in lms]
-                suffix_lasts = [lm.sm.suffix_last for lm in lms]
-                if mesh is not None:
-                    return pmesh.sharded_grouped_read_stats(
-                        mesh, structs, seqs, lengths, kernel="struct",
-                        metas=metas, suffix_lasts=suffix_lasts)
-                return da.read_stats_struct_grouped(
-                    StructDeviceModel.stack(structs), da.stack_meta(metas),
-                    seqs, lengths,
-                    torch.tensor(suffix_lasts, device=self.device))
-            models = [lm.model for lm in lms]
-            if mesh is not None:
-                return pmesh.sharded_grouped_read_stats(mesh, models, seqs,
-                                                        lengths)
-            return da.read_stats_grouped(models, seqs, lengths)
+            return decode_group([prepped[vid][1] for vid in chunk],
+                                torch.as_tensor(batch, device=self.device),
+                                torch.as_tensor(lens, device=self.device),
+                                self._get_panel_mesh(group_size, B_pad))
 
     def _get_panel_mesh(self, group_size: int, batch: int):
         """(loci, reads) device mesh for the grouped dispatch, or None when

@@ -6,40 +6,19 @@ are encoded, padded and scored in one fused Viterbi + analytics call on
 the device; the host applies the scalar gates and the genotype model
 (engine/genotype.py).  Long reads (PacBio) are first cut to the window
 between their two flank anchors (ops/align.py) and then decoded against a
-model as wide as the longest window, through the checkpointed traceback
-where the window is longer than ``CKPT_TRACEBACK_L`` columns.
-
-Model "weights" are the numpy ``(art, sm)`` payload of
-``build_locus_payload``.  A bank file ``model_bank/*.pkl.gz`` holds its
-decode payload: the artifact without its O(n^2) tables (``DENSE_FIELDS``),
-which only the ``struct`` decoder and the path expansion of ``-fs`` and
-``-u`` read; those load on demand (``DenseSource``) from a companion file
-``*.dense.pkl.gz`` or a rebuild of the locus.  Payloads are pickled with
-this package's classes; ``load_reference_payload`` also reads a bank file
-that the reference package wrote, full or slim, without importing that
-package.  With
-``Config.trained_hmms_dir`` set, a locus's model comes from its
-pomegranate-JSON checkpoint ``<vid>_<read length>.json`` where one exists:
-structured when the extractor takes its topology, else the dense fallback
-(``device_analytics.read_stats_dense``).  ``ADVNTR_TPU_KERNEL`` chooses the
-decoder of structured models: ``pallas`` (the default), B1 and B2 on the
-card or their plain twins on the CPU; or ``struct``, the reference's
-structured decoder in plain PyTorch (ops/viterbi_struct.py) on either
-device.  A per-locus DNN model
-``<dnn_models_dir>/<vid>.npz`` pre-screens the orientations of unmapped
-reads before they are scored (engine/deep_recruitment.py).
+model as wide as the longest window.  Models come from
+engine/locus_model.py, keyed by ``model_key``; with
+``Config.trained_hmms_dir`` set, from a locus's pomegranate-JSON
+checkpoint ``<vid>_<read length>.json`` where one exists.  A per-locus DNN
+model ``<dnn_models_dir>/<vid>.npz`` pre-screens the orientations of
+unmapped reads before they are scored (engine/deep_recruitment.py).
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
-import functools
-import gzip
-import importlib
 import logging
 import os
-import pickle
 
 import numpy as np
 import torch
@@ -49,51 +28,16 @@ from advntr_tpu_torch.config import Config, DEFAULT_CONFIG
 from advntr_tpu_torch.engine.genotype import find_genotype, identify_frameshift
 from advntr_tpu_torch.engine import deep_recruitment as dr
 from advntr_tpu_torch.engine.haplotyper import PacBioHaplotyper
+from advntr_tpu_torch.engine.locus_model import (LocusModel,
+                                                 LocusModelCache, host_step)
 from advntr_tpu_torch.io.bam import get_reference_genome_style
-from advntr_tpu_torch.models.compiler import (ModelArtifact, compile_graph,
-                                             expand_path)
-from advntr_tpu_torch.models.graph import build_read_matcher
+from advntr_tpu_torch.models.bank import (copies_for_hmm, model_key,
+                                          read_matcher)
 from advntr_tpu_torch.models.hmm_json import load_trained_hmm
 from advntr_tpu_torch.models.profile import profile_for_repeats
-from advntr_tpu_torch.models.struct_compiler import (StructModel,
-                                                     build_structured,
-                                                     pad_structured)
 from advntr_tpu_torch.utils.profiler import count, span
 from advntr_tpu_torch.engine import device_analytics as da
 from advntr_tpu_torch.ops.align import anchor_probes_batch, local_align
-from advntr_tpu_torch.ops.struct_model import TorchStructModel
-from advntr_tpu_torch.ops.viterbi_struct import StructDeviceModel
-
-# batches longer than this many columns take the checkpointed (recompute)
-# traceback in segments of CKPT_SEGMENT columns: whole origin planes
-# outgrow the device there (finder.py:94-97)
-CKPT_TRACEBACK_L = 2048
-CKPT_SEGMENT = 512
-
-KERNELS = ("pallas", "struct")
-
-
-def _default_kernel() -> str:
-    """The decoder of structured models (finder.py:100-112):
-    ``ADVNTR_TPU_KERNEL``, ``pallas`` unless it says ``struct``.  Where
-    the reference defaults to ``struct`` on the CPU, the port defaults to
-    ``pallas`` on both devices: on the CPU that is B1/B2's plain twins."""
-    kernel = os.environ.get("ADVNTR_TPU_KERNEL") or "pallas"
-    if kernel not in KERNELS:
-        raise ValueError(f"ADVNTR_TPU_KERNEL={kernel!r}: use one of "
-                         f"{KERNELS}")
-    return kernel
-
-# The artifact's O(n^2) tables: a bank payload leaves them out, since the
-# default decode reads only the O(n) fields (finder.py:115-125)
-DENSE_FIELDS = ("log_T", "t_unit_starts", "t_unit_ends", "hop_choice",
-                "closure_parent")
-
-
-def has_dense_tables(art) -> bool:
-    """Whether the artifact carries its dense tables (a decode payload's
-    artifact does not)."""
-    return all(getattr(art, f) is not None for f in DENSE_FIELDS)
 
 
 @dataclasses.dataclass
@@ -127,432 +71,6 @@ class ScoredRead:
     is_mapped: bool
     query_name: str | None = None
     row: int = -1  # batch row of the winning orientation
-
-
-class HostStepError(Exception):
-    """A locus's host work failed (its model build, the haplotyper): the
-    analyzer prints that locus's Error row and goes on, as the reference
-    does.  A device error is not one of these and propagates."""
-
-
-@contextlib.contextmanager
-def host_step():
-    """Turn an error of the host work inside into a ``HostStepError``
-    (an unported feature's NotImplementedError stays as it is)."""
-    try:
-        yield
-    except NotImplementedError:
-        raise
-    except Exception as error:
-        raise HostStepError(str(error)) from error
-
-
-def _round_up(x: int, m: int) -> int:
-    return ((x + m - 1) // m) * m
-
-
-@dataclasses.dataclass
-class LocusModel:
-    """Everything score_reads needs for one compiled locus model: the
-    structured tables of the kernels or, for an imported model the
-    structured extractor refuses, the dense fallback's.  Under the
-    ``struct`` kernel the structured decoder's tables are built from
-    ``sm`` at first use (``struct_model``).  The artifact's dense tables
-    are filled from ``source`` the first time a mode reads them."""
-    model: TorchStructModel | None     # padded device tables
-    n_pad: int                     # state count padded to the bucket
-    art: ModelArtifact | None = None   # unpadded host artifact (names)
-    dense: da.DenseModel | None = None  # dense fallback, model is None
-    kernel: str = "pallas"         # the decoder this model was built for
-    sm: StructModel | None = None  # padded host StructModel
-    struct: StructDeviceModel | None = None   # built by struct_model()
-    source: DenseSource | None = None  # where art's dense tables come from
-
-    def dense_art(self) -> ModelArtifact:
-        """The artifact with its dense tables, filled once from
-        ``source``."""
-        if self.source is not None:
-            self.art = self.source.fill(self.art)
-            self.source = None
-        return self.art
-
-    def struct_model(self) -> StructDeviceModel | None:
-        """The structured decoder's tables on the model's device, built at
-        the first call and kept (finder.py:79-91): their dense (S, S)
-        in-edge table reads the artifact's dense ``log_T``."""
-        if self.struct is None and self.sm is not None:
-            self.struct = StructDeviceModel.from_struct(
-                self.sm, self.dense_art(), self.model.device)
-        return self.struct
-
-    def visited_states(self, path) -> list[str]:
-        """A decoded artifact-space path as the full visited-state names
-        (``expand_path``, through the dense ``hop_choice``), for the modes
-        that read paths as text."""
-        return expand_path(self.dense_art(), path)
-
-    def shape_key(self) -> tuple:
-        """Same-key loci share kernel shapes and score as one group (the
-        keys of analyzer.py:496-506); a dense model scores alone."""
-        if self.kernel == "struct":
-            return ("struct", self.sm.P, self.sm.C,
-                    self.model.struct_to_art.shape[0], self.n_pad)
-        return self.model.shape_key() + (self.n_pad,)
-
-
-@span("advntr.model.build")
-def build_locus_payload(ref_vntr, copies: int, flank_size: int,
-                        error_rate: float):
-    """Host-side model construction for one locus (finder.py:128-143):
-    profile estimation, graph build, silent-state elimination, structured
-    extraction.  Pure numpy output, so it can run in worker processes; the
-    artifact is whole (``decode_payload`` is what a bank file holds)."""
-    left = ref_vntr.left_flanking_region[-flank_size:]
-    right = ref_vntr.right_flanking_region[:flank_size]
-    with span("advntr.model.build.profile"):
-        trans, emis = profile_for_repeats(
-            list(ref_vntr.get_repeat_segments()), error_rate)
-    with span("advntr.model.build.graph"):
-        g = build_read_matcher(left, right, trans, emis, copies, error_rate)
-    with span("advntr.model.build.compile"):
-        art = compile_graph(g)
-    with span("advntr.model.build.struct"):
-        sm = build_structured(g, art)
-    return art, sm
-
-
-def decode_payload(art, sm):
-    """The payload a bank file holds: the artifact without its dense
-    tables, and the structured model."""
-    return dataclasses.replace(art, **{f: None for f in DENSE_FIELDS}), sm
-
-
-def dense_tables(art) -> dict:
-    """The artifact's dense tables, as a companion file holds them."""
-    return {f: getattr(art, f) for f in DENSE_FIELDS}
-
-
-def bank_payload_path(bank_dir: str, vid, copies: int, flank_size: int,
-                      error_rate: float) -> str:
-    """The reference's per-locus bank file name (finder.py:146-155), so
-    a bank directory the reference wrote is found and read."""
-    return os.path.join(bank_dir, "model_%s_%s_%s_%s.pkl.gz"
-                        % (vid, copies, flank_size, error_rate))
-
-
-def dense_payload_path(path: str) -> str:
-    """The companion of a bank file, which holds its dense tables."""
-    return path[:-len(".pkl.gz")] + ".dense.pkl.gz"
-
-
-def write_payload(path: str, obj) -> int:
-    """Pickle ``obj`` into ``path`` gzipped and publish it atomically (tmp
-    file, then ``os.replace``), so that concurrent builders and readers
-    never see a torn pickle; the compressed bytes written."""
-    tmp = "%s.tmp.%d" % (path, os.getpid())
-    with gzip.open(tmp, "wb", compresslevel=1) as fh:
-        pickle.dump(obj, fh)
-    size = os.path.getsize(tmp)
-    os.replace(tmp, path)
-    return size
-
-
-def build_and_save_payload(ref_vntr, copies: int, flank_size: int,
-                           error_rate: float, path: str) -> str:
-    """Build one locus payload and bank it, the dense tables' companion
-    first, so that a bank file found means its companion is there too:
-    the worker of ``buildbank`` (finder.py:158-172)."""
-    if os.path.exists(path):
-        return path
-    art, sm = build_locus_payload(ref_vntr, copies, flank_size, error_rate)
-    write_payload(dense_payload_path(path), dense_tables(art))
-    write_payload(path, decode_payload(art, sm))
-    return path
-
-
-_REFERENCE_MODELS = "advntr_tpu.models."
-_OWN_MODELS = "advntr_tpu_torch.models."
-
-
-class _BankUnpickler(pickle.Unpickler):
-    """Reads bank payloads of either package with this package's classes:
-    ``advntr_tpu.models.*`` resolves to ``advntr_tpu_torch.models.*``, any
-    other ``advntr_tpu`` name is refused, and the reference package is
-    never imported."""
-
-    def find_class(self, module, name):
-        if module.startswith(_REFERENCE_MODELS):
-            module = _OWN_MODELS + module[len(_REFERENCE_MODELS):]
-            return getattr(importlib.import_module(module), name)
-        if module == "advntr_tpu" or module.startswith("advntr_tpu."):
-            raise pickle.UnpicklingError(
-                "bank payload names %s.%s; only advntr_tpu.models.* classes "
-                "are read from a reference-built bank" % (module, name))
-        return super().find_class(module, name)
-
-
-def load_reference_payload(path: str):
-    """The (art, sm) payload of one bank file, written by this package or
-    by the reference's ``buildbank``, as this package's dataclasses; also
-    reads a companion's dense tables."""
-    with gzip.open(path, "rb") as fh:
-        return _BankUnpickler(fh).load()
-
-
-@dataclasses.dataclass
-class DenseSource:
-    """Where a locus model's dense tables come from when a mode reads them
-    (``LocusModel.dense_art``): the bank's companion file, else a rebuild
-    of the locus.  A companion missing from the bank is written then."""
-    ref_vntr: object
-    key: tuple                 # (copies, flank_size, error_rate)
-    path: str | None           # the companion, where the cache has a bank
-
-    def fill(self, art) -> ModelArtifact:
-        """``art`` with its dense tables."""
-        with span("advntr.model.dense"):
-            if not has_dense_tables(art):
-                if self.path is not None and os.path.exists(self.path):
-                    tables = load_reference_payload(self.path)
-                    count("model.dense_read")
-                    return dataclasses.replace(art, **tables)
-                full, _ = build_locus_payload(self.ref_vntr, *self.key)
-                count("model.dense_rebuild")
-                art = dataclasses.replace(art, **dense_tables(full))
-            if self.path is not None and not os.path.exists(self.path):
-                try:
-                    write_payload(self.path, dense_tables(art))
-                    count("model.dense_write")
-                except OSError as error:   # a bank the call cannot write
-                    logging.warning("dense tables not banked: %s", error)
-        return art
-
-
-def payload_from_arrays(art_fields: dict, sm_fields: dict):
-    """This package's (ModelArtifact, StructModel) from the fields of the
-    reference's, given as plain dicts of numpy arrays and scalars
-    (``dataclasses.asdict`` of each, or ``vars``)."""
-    return ModelArtifact(**art_fields), StructModel(**sm_fields)
-
-
-class LocusModelCache:
-    """Per-(locus, read length) compiled model cache (finder.py:175-348).
-
-    Pads the structured position/unit axes to buckets, so that same-bucket
-    loci share kernel shapes and score as one group.  ``workers`` builds
-    scheduled loci in a spawn process pool while earlier loci score;
-    ``bank_dir`` persists and reuses the built payloads."""
-
-    def __init__(self, device="cuda", state_bucket: int = 128,
-                 pos_bucket: int = 128, unit_bucket: int = 8,
-                 workers: int = 0, bank_dir: str | None = None):
-        self.device = torch.device(device)
-        self.state_bucket = state_bucket
-        self.pos_bucket = pos_bucket
-        self.unit_bucket = unit_bucket
-        self.bank_dir = bank_dir
-        self._cache: dict = {}
-        self._futures: dict = {}
-        self._pool = None
-        if workers:
-            import concurrent.futures
-            import multiprocessing
-            # spawn: the workers are host-only builders and must not
-            # inherit the parent's CUDA context
-            self._pool = concurrent.futures.ProcessPoolExecutor(
-                workers, mp_context=multiprocessing.get_context("spawn"))
-
-    def close(self) -> None:
-        """Stop the worker pool, if any."""
-        if self._pool is not None:
-            self._pool.shutdown(cancel_futures=True)
-            self._pool = None
-
-    @staticmethod
-    def _key(ref_vntr, copies, flank_size, error_rate):
-        # the kernel choice is part of the key (finder.py:214-220): a
-        # LocusModel carries its kernel's tables, and ADVNTR_TPU_KERNEL may
-        # change between calls while the cache persists
-        return (ref_vntr.id, copies, flank_size, error_rate,
-                _default_kernel())
-
-    def _bank_path(self, key):
-        if not self.bank_dir:
-            return None
-        # payloads do not depend on the kernel
-        return bank_payload_path(self.bank_dir, *key[:4])
-
-    def schedule(self, ref_vntr, copies: int, flank_size: int,
-                 error_rate: float) -> None:
-        """Queue background compilation of a locus model."""
-        key = self._key(ref_vntr, copies, flank_size, error_rate)
-        if key in self._cache or key in self._futures or self._pool is None:
-            return
-        path = self._bank_path(key)
-        if path is not None and os.path.exists(path):
-            return  # bank hit; loaded lazily in get()
-        self._futures[key] = self._pool.submit(
-            build_locus_payload, ref_vntr, copies, flank_size, error_rate)
-
-    def get(self, ref_vntr, copies: int, flank_size: int,
-            error_rate: float) -> LocusModel:
-        """The locus's model on the cache's device.  An error of the host
-        build (the compile, the bank, the padding) raises
-        ``HostStepError``; one of the upload to the device propagates as
-        it is."""
-        key = self._key(ref_vntr, copies, flank_size, error_rate)
-        if key in self._cache:
-            count("model.hit")
-            return self._cache[key]
-        with span("advntr.model", vid=ref_vntr.id):
-            with host_step():
-                payload, built = self._payload(key, ref_vntr)
-                padded = self._pad(*payload)
-            lm = self._upload(*padded)
-            path = self._bank_path(key)
-            # a full payload read from the bank carries its dense tables;
-            # a built one's companion is written when a mode reads them
-            if not has_dense_tables(payload[0]) or (built and path):
-                lm.source = DenseSource(
-                    ref_vntr, key[1:4],
-                    dense_payload_path(path) if path else None)
-            self._cache[key] = lm
-        return lm
-
-    def _payload(self, key, ref_vntr):
-        """(the locus's (art, sm), whether it was built): from the pool,
-        the bank or a build here.  A build keeps its whole artifact and
-        banks its decode payload.  A build here counts its artifact's
-        states (``model.build_states``) and the bytes of its dense tables
-        (``model.build_dense_bytes``), which the cache holds until the
-        wave's ``evict``; a pool's build adds to neither, since its
-        ``advntr.model.build`` span stays in the worker's process."""
-        path = self._bank_path(key)
-        payload = None
-        built = False
-        fut = self._futures.pop(key, None)
-        if fut is not None:
-            with span("advntr.model.pool_wait"):
-                payload, built = fut.result(), True
-            count("model.pool_hit")
-        if payload is None and path is not None and os.path.exists(path):
-            with span("advntr.model.bank_read"):
-                payload = load_reference_payload(path)
-            count("model.bank_hit")
-            count("model.bank_bytes_read", os.path.getsize(path))
-        if payload is None:
-            payload, built = build_locus_payload(ref_vntr, *key[1:4]), True
-            count("model.built")
-            count("model.build_states", len(payload[0].names))
-            count("model.build_dense_bytes", sum(
-                t.nbytes for t in dense_tables(payload[0]).values()))
-        if built and path is not None and not os.path.exists(path):
-            with span("advntr.model.bank_write"):
-                os.makedirs(self.bank_dir, exist_ok=True)
-                n = write_payload(path, decode_payload(*payload))
-            count("model.bank_bytes_written", n)
-        return payload, built
-
-    def evict(self, ref_vntr, copies: int, flank_size: int,
-              error_rate: float) -> None:
-        """Drop a locus's model from the in-RAM cache (the bank copy on
-        disk stays); panel runs evict each finished wave."""
-        self._cache.pop(self._key(ref_vntr, copies, flank_size, error_rate),
-                        None)
-
-    @staticmethod
-    def _coarse_bucket(size: int, bucket: int) -> int:
-        """Axes past 1024 pad to 512-multiples (finder.py:297-304)."""
-        return max(bucket, 512) if size > 1024 else bucket
-
-    def _state_pad(self, art) -> int:
-        """The artifact's state count padded to its bucket."""
-        return _round_up(art.n_states,
-                         self._coarse_bucket(art.n_states,
-                                             self.state_bucket))
-
-    @span("advntr.model.pad")
-    def _pad(self, art, sm):
-        """(art, sm padded to the buckets, the padded state count)."""
-        n_pad = self._state_pad(art)
-        P_pad = _round_up(sm.P + 1,
-                          self._coarse_bucket(sm.P + 1, self.pos_bucket))
-        C_pad = _round_up(sm.C, self.unit_bucket if sm.C <= 24
-                          else max(self.unit_bucket, 32))
-        return art, pad_structured(sm, art, P_pad, C_pad), n_pad
-
-    @span("advntr.model.upload")
-    def _upload(self, art, sm, n_pad) -> LocusModel:
-        return LocusModel(
-            model=TorchStructModel.from_payload(art, sm, self.device),
-            n_pad=n_pad, art=art, kernel=_default_kernel(), sm=sm)
-
-    def _build_from_payload(self, art, sm) -> LocusModel:
-        return self._upload(*self._pad(art, sm))
-
-    def _build(self, g, art) -> LocusModel:
-        """The model of a graph compiled here (finder.py:290): the
-        re-estimated models of ``-u`` and ``--em``, not cached."""
-        with host_step():
-            padded = self._pad(art, build_structured(g, art))
-        return self._upload(*padded)
-
-    def _build_imported(self, g, art) -> LocusModel:
-        """The model of an imported graph (finder.py:502-508): structured
-        when the extractor takes its topology, else the dense fallback
-        over the artifact padded to the state bucket (finder.py:339-345).
-        The host build raises ``HostStepError``; the upload is outside."""
-        with host_step():
-            try:
-                padded = self._pad(art, build_structured(g, art))
-            except Exception as error:
-                logging.info("imported topology refused by the structured "
-                             "extractor (%s): dense fallback", error)
-                padded = None
-            if padded is None:
-                n_pad = self._state_pad(art)
-                dense = _pad_artifact(art, n_pad)
-        if padded is not None:
-            return self._upload(*padded)
-        return LocusModel(model=None, n_pad=n_pad, art=art,
-                          dense=da.DenseModel.from_artifact(dense,
-                                                            self.device))
-
-
-def _pad_artifact(art, n_pad: int):
-    """Pad an artifact to n_pad states with unreachable dummy states."""
-    n = art.n_states
-    if n_pad == n:
-        return art
-    pad = n_pad - n
-
-    def pad2(x, fill):
-        out = np.full((n_pad, n_pad), fill, dtype=x.dtype)
-        out[:n, :n] = x
-        return out
-
-    def pad1(x, fill):
-        out = np.full((n_pad,) + x.shape[1:], fill, dtype=x.dtype)
-        out[:n] = x
-        return out
-
-    return dataclasses.replace(
-        art,
-        log_T=pad2(art.log_T, -np.inf),
-        log_E=pad1(art.log_E, -np.inf),
-        log_start=pad1(art.log_start, -np.inf),
-        log_end=pad1(art.log_end, -np.inf),
-        t_unit_starts=pad2(art.t_unit_starts, 0),
-        t_unit_ends=pad2(art.t_unit_ends, 0),
-        s_unit_starts=pad1(art.s_unit_starts, 0),
-        s_unit_ends=pad1(art.s_unit_ends, 0),
-        e_unit_starts=pad1(art.e_unit_starts, 0),
-        e_unit_ends=pad1(art.e_unit_ends, 0),
-        kind=pad1(art.kind, 3), region=pad1(art.region, 3),
-        pos=pad1(art.pos, 0), unit=pad1(art.unit, -1),
-        exp_base=pad1(art.exp_base, -1),
-        names=art.names + [f"__pad_{i}" for i in range(pad)],
-    )
 
 
 def flank_pattern_homology(pattern: str, left_flank: str,
@@ -620,18 +138,20 @@ class VNTRFinder:
 
     def get_copies_for_hmm(self, read_length: int) -> int:
         # reference: vntr_finder.py:98-99
-        return int(round(read_length / len(self.reference_vntr.pattern) + 0.5))
+        return copies_for_hmm(self.reference_vntr.pattern, read_length)
 
-    def get_model(self, read_length: int, copies: int | None = None,
-                  flank_size: int | None = None) -> LocusModel:
+    def model_key(self, read_length: int) -> tuple:
+        """The cache's key of the read matcher for ``read_length``."""
+        return model_key(self.reference_vntr, read_length,
+                         self.config.max_error_rate)
+
+    def get_model(self, read_length: int,
+                  key: tuple | None = None) -> LocusModel:
+        """The trained HMM, else the model of ``key`` (or ``model_key``)."""
         trained = self._load_trained_hmm(read_length)
         if trained is not None:
             return trained
-        copies = copies if copies is not None else \
-            self.get_copies_for_hmm(read_length)
-        flank_size = flank_size if flank_size is not None else read_length
-        return self.cache.get(self.reference_vntr, copies, flank_size,
-                              self.config.max_error_rate)
+        return self.cache.get(key or self.model_key(read_length))
 
     def _load_trained_hmm(self, read_length: int) -> LocusModel | None:
         """The locus's pomegranate-JSON checkpoint for this read length,
@@ -648,8 +168,7 @@ class VNTRFinder:
         if os.path.exists(path):
             with host_step():
                 g = load_trained_hmm(path)
-                art = compile_graph(g)
-            lm = self.cache._build_imported(g, art)
+            lm = self.cache.build(graph=g, dense_fallback=True)
             logging.info("loaded trained HMM %s", path)
         self._trained[read_length] = lm
         return lm
@@ -873,32 +392,12 @@ class VNTRFinder:
 
     def run_device(self, lm: LocusModel, batch, lengths,
                    return_paths: bool = False) -> dict:
-        """Score a padded batch on the cache's device; numpy stats, with
-        the decoded artifact-space paths (B, L) under "path" when
-        ``return_paths``.  Long lattices (multi-kb long-read windows) take
-        the checkpointed traceback (finder.py:772-781) of the model's
-        kernel; a dense model the dense fallback, whatever the length
-        (finder.py:793-796).  Where the reference decodes every long
-        lattice with its struct kernel, the port's ``pallas`` models keep
-        B1/B2's checkpointed path."""
+        """``LocusModel.decode`` of a padded batch on the cache's device,
+        as numpy."""
         with span("advntr.decode.launch"):
-            seqs = torch.as_tensor(batch, device=self.device)
-            lens = torch.as_tensor(lengths, device=self.device)
-            path = {"return_path": True} if return_paths else {}
-            if lm.dense is not None:
-                stats = da.read_stats_dense(lm.dense, seqs, lens, **path)
-            elif lm.kernel == "struct":
-                read_stats = da.read_stats_struct
-                if seqs.shape[1] > CKPT_TRACEBACK_L:
-                    read_stats = functools.partial(
-                        da.read_stats_struct_ckpt, segment=CKPT_SEGMENT)
-                stats = read_stats(lm.struct_model(), lm.model.art_meta,
-                                   seqs, lens, lm.sm.suffix_last, **path)
-            elif seqs.shape[1] > CKPT_TRACEBACK_L:
-                stats = da.read_stats_ckpt(lm.model, seqs, lens,
-                                           segment=CKPT_SEGMENT, **path)
-            else:
-                stats = da.read_stats(lm.model, seqs, lens, **path)
+            stats = lm.decode(torch.as_tensor(batch, device=self.device),
+                              torch.as_tensor(lengths, device=self.device),
+                              return_paths)
         with span("advntr.decode.wait"):
             return {k: v.cpu().numpy() for k, v in stats.items()}
 
@@ -959,15 +458,6 @@ class VNTRFinder:
     # -- model updating (reference: iteratively_update_model,
     #    vntr_finder.py:668-698) ---------------------------------------------
 
-    def _read_matcher(self, read_length: int, trans, emis):
-        """The locus's read-matcher graph over a repeat profile, with
-        ``read_length`` bp flanks."""
-        left = self.reference_vntr.left_flanking_region[-read_length:]
-        right = self.reference_vntr.right_flanking_region[:read_length]
-        return build_read_matcher(left, right, trans, emis,
-                                  self.get_copies_for_hmm(read_length),
-                                  self.config.max_error_rate)
-
     def rebuild_model_from_vpaths(self, seq_vpaths, read_length: int):
         """Re-estimate the repeat profile from the MSA of decoded unit paths
         and rebuild the read-matcher model (finder.py:853; the reference
@@ -988,11 +478,10 @@ class VNTRFinder:
                 return None
             alignment = msa_from_viterbi_paths(repeats_sequences,
                                                repeats_states)
-            trans, emis = profile_from_alignment(self.config.max_error_rate,
-                                                 alignment)
-            g = self._read_matcher(read_length, trans, emis)
-            art = compile_graph(g)
-        return self.cache._build(g, art)
+            profile = profile_from_alignment(self.config.max_error_rate,
+                                             alignment)
+            g = read_matcher(*self.model_key(read_length), profile)
+        return self.cache.build(graph=g)
 
     def update_and_reselect(self, mapped_reads, unmapped_reads,
                             read_length: int):
@@ -1064,9 +553,8 @@ class VNTRFinder:
                     mean = mean / mean.sum()
                     emis[key] = {b: float(mean[dna.encode(b)[0]])
                                  for b in "ACGT"}
-            g = self._read_matcher(read_length, trans, emis)
-            art = compile_graph(g)
-        updated = self.cache._build(g, art)
+            g = read_matcher(*self.model_key(read_length), (trans, emis))
+        updated = self.cache.build(graph=g)
         new_selected, _ = self.select_reads(mapped_reads, unmapped_reads,
                                             read_length, model=updated)
         return new_selected
@@ -1134,11 +622,8 @@ class VNTRFinder:
             return cached[read_length]
         from advntr_tpu_torch.ops.posterior import clean_neg, indel_model
         with host_step():
-            trans, emis = profile_for_repeats(
-                list(self.reference_vntr.get_repeat_segments()),
-                self.config.max_error_rate)
             host, occ_mask = indel_model(
-                self._read_matcher(read_length, trans, emis))
+                read_matcher(*self.model_key(read_length)))
         tensors = tuple(clean_neg(x, self.device) for x in host) + (
             torch.as_tensor(occ_mask, device=self.device),)
         cached[read_length] = tensors
@@ -1185,10 +670,7 @@ class VNTRFinder:
         from advntr_tpu_torch.models.compiler import compile_graph_sum
         from advntr_tpu_torch.ops.baum_welch import baum_welch_fit
         with host_step():
-            trans, emis = profile_for_repeats(
-                list(self.reference_vntr.get_repeat_segments()),
-                self.config.max_error_rate)
-            g = self._read_matcher(read_length, trans, emis)
+            g = read_matcher(*self.model_key(read_length))
             log_T, log_E, log_start, log_end = compile_graph_sum(g)
             names = [s.name for i, s in enumerate(g.states)
                      if not s.is_silent and i not in (g.start, g.end)]
@@ -1394,6 +876,19 @@ class VNTRFinder:
                 spanning.append((read.query_name, seq))
         return spanning
 
+    def _spanning_model(self, spanning_reads, most: int | None = None):
+        """The model that decodes long-read windows (vntr_finder.py:540-546,
+        596-602): as many units as the longest window holds past its two
+        100 bp flanks, at least one and at most ``most``, between 100 bp
+        flanks."""
+        longest = max([0] + [len(seq) - 100 for _, seq in spanning_reads])
+        copies = max(int(round(longest /
+                               float(len(self.reference_vntr.pattern)))), 1)
+        if most is not None:
+            copies = min(copies, most)
+        return self.get_model(0, (self.reference_vntr, copies, 100,
+                                  self.config.max_error_rate))
+
     def get_dominant_copy_numbers_from_spanning_reads(
             self, spanning_reads, accuracy_filter: bool = False):
         """Viterbi-decode each spanning window against a max-copies model and
@@ -1402,20 +897,12 @@ class VNTRFinder:
         if len(spanning_reads) < 1:
             logging.info("There is no spanning read")
             return None, 0
-        max_length = 0
-        for _, seq in spanning_reads:
-            if len(seq) - 100 > max_length:
-                max_length = len(seq) - 100
-        max_copies = int(round(max_length /
-                               float(len(self.reference_vntr.pattern))))
-        max_copies = max(max_copies, 1)
         if accuracy_filter:
             self.minimum_left_flanking_size = \
                 self.config.accuracy_filter_min_left_flanking_size
             self.minimum_right_flanking_size = \
                 self.config.accuracy_filter_min_right_flanking_size
-        model = self.get_model(read_length=0, copies=max_copies,
-                               flank_size=100)
+        model = self._spanning_model(spanning_reads)
         scored, _ = self.score_reads(spanning_reads, [], read_length=0,
                                      model=model)
         observed = [r.repeats for r in scored if np.isfinite(r.logp)]
@@ -1431,16 +918,8 @@ class VNTRFinder:
         each (reference semantics: vntr_finder.py:588-609)."""
         if len(spanning_reads) < 1:
             return None
-        max_length = 0
-        for _, seq in spanning_reads:
-            if len(seq) - 100 > max_length:
-                max_length = len(seq) - 100
-        max_copies = int(round(max_length /
-                               float(len(self.reference_vntr.pattern))))
-        max_copies = min(max(max_copies, 1),
-                         2 * len(self.reference_vntr.get_repeat_segments()))
-        model = self.get_model(read_length=0, copies=max_copies,
-                               flank_size=100)
+        model = self._spanning_model(
+            spanning_reads, 2 * len(self.reference_vntr.get_repeat_segments()))
         with host_step():
             haplotyper = PacBioHaplotyper([seq for _, seq in spanning_reads])
             haplotypes = haplotyper.get_error_corrected_haplotypes()

@@ -112,7 +112,7 @@ def _on(device: torch.device):
     return contextlib.nullcontext()
 
 
-def _struct_shard(models, metas, suffix_lasts):
+def struct_shard(models, metas, suffix_lasts):
     """The tables of a shard of struct loci and how they move and score."""
     tables = (StructDeviceModel.stack(models), da.stack_meta(metas),
               torch.tensor(suffix_lasts, device=models[0].device))
@@ -163,7 +163,7 @@ def sharded_grouped_read_stats(mesh: PanelMesh, models, seqs, lengths,
         if g0 == g1:
             continue
         if kernel == "struct":
-            tables, move, score = _struct_shard(
+            tables, move, score = struct_shard(
                 models[g0:g1], metas[g0:g1], suffix_lasts[g0:g1])
         else:
             tables = TorchStructModel.stack(models[g0:g1])

@@ -14,6 +14,8 @@ from advntr_tpu_torch.engine.simulate import (haplotype_sequence, mutate,
                                               simulate_diploid_reads,
                                               simulate_pacbio_reads)
 from advntr_tpu_torch.io.bam import BamRead, BamWriter, build_bai
+from advntr_tpu_torch.models.bank import (copies_for_hmm, model_key,
+                                          read_matcher)
 from advntr_tpu_torch.models.compiler import compile_graph
 from advntr_tpu_torch.models.db import (create_vntrs_database,
                                   save_reference_vntr_to_database)
@@ -63,7 +65,7 @@ def build_cstb_locus(read_length: int = 150):
     rng = random.Random(42)
     left = "".join(rng.choice("ACGT") for _ in range(read_length))
     right = "".join(rng.choice("ACGT") for _ in range(read_length))
-    copies = int(round(read_length / len(CSTB_PATTERN) + 0.5))
+    copies = copies_for_hmm(CSTB_PATTERN, read_length)
     trans, emis = profile_for_repeats([CSTB_PATTERN] * 3, 0.05)
     graph = build_read_matcher(left, right, trans, emis, copies, 0.05)
     return graph, compile_graph(graph), left, right, CSTB_PATTERN
@@ -96,12 +98,7 @@ def write_trained_hmms(workdir: str, db: str, read_length: int,
     out = os.path.join(workdir, "trained_hmms")
     os.makedirs(out, exist_ok=True)
     for ref in load_unique_vntrs_data(db):
-        trans, emis = profile_for_repeats(list(ref.get_repeat_segments()),
-                                          0.05)
-        copies = int(round(read_length / len(ref.pattern) + 0.5))
-        g = build_read_matcher(ref.left_flanking_region[-read_length:],
-                               ref.right_flanking_region[:read_length],
-                               trans, emis, copies, 0.05)
+        g = read_matcher(*model_key(ref, read_length, 0.05))
         save_trained_hmm(refused_topology(g) if refused else g,
                          os.path.join(out, f"{ref.id}_{read_length}.json"))
     return out

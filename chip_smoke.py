@@ -412,7 +412,8 @@ def phase_group(dev):
     """G = 8 same-shape loci of the panel with their own read batches, as
     the engine prepares and pads them: one grouped launch of each kernel
     against the per-locus twins.  Returns (stack, seqs, lengths)."""
-    from advntr_tpu_torch.engine.finder import LocusModelCache, VNTRFinder
+    from advntr_tpu_torch.engine.finder import VNTRFinder
+    from advntr_tpu_torch.engine.locus_model import LocusModelCache
     from advntr_tpu_torch.io.bam import BamReader
     from advntr_tpu_torch.models.db import load_unique_vntrs_data
     from advntr_tpu_torch.ops import _kernels
@@ -1062,16 +1063,14 @@ def phase_long_reads(dev, kernels, cell, L, B, tail=False):
     """The long-read path at full width: the long-read locus and its
     reads through read_stats_ckpt, K 512 against K 1,024, timed."""
     from advntr_tpu_torch.engine import device_analytics as da
-    from advntr_tpu_torch.engine.finder import LocusModelCache
-    from advntr_tpu_torch.models.struct_compiler import build_structured
+    from advntr_tpu_torch.engine.locus_model import LocusModelCache
     from advntr_tpu_torch.ops import viterbi_fused as vf
     from advntr_tpu_torch.synthetic import (build_long_read_locus,
                                             encode_reads,
                                             simulate_long_reads)
     t0 = time.perf_counter()
     graph, art, rng, hap = build_long_read_locus(L)
-    lm = LocusModelCache(device=dev)._build_from_payload(
-        art, build_structured(graph, art))
+    lm = LocusModelCache(device=dev).build(art, graph=graph)
     m = lm.model
     host_s = time.perf_counter() - t0
     reads = simulate_long_reads(rng, hap, B, L)
@@ -1610,12 +1609,13 @@ def cpu_slice_rel_err(name, tables, occ, seqs, lens, res) -> dict:
 def phase_engine_paths(dev, kernels):
     """B2's path through the engine: ``run_device(..., return_paths=True)``
     at the CSTB cell against the twins on the same inputs."""
-    from advntr_tpu_torch.engine.finder import LocusModelCache, VNTRFinder
+    from advntr_tpu_torch.engine.finder import VNTRFinder
+    from advntr_tpu_torch.engine.locus_model import LocusModelCache
     from advntr_tpu_torch.ops import viterbi_fused as vf
     from advntr_tpu_torch.synthetic import (build_cstb_locus, encode_reads,
                                             simulate_cstb_reads)
     graph, art, left, right, pattern = build_cstb_locus(READ_LEN)
-    lm = LocusModelCache(device=dev)._build(graph, art)
+    lm = LocusModelCache(device=dev).build(art, graph=graph)
     batch, lengths = encode_reads(
         simulate_cstb_reads(left, pattern, right, READ_LEN, N_READS, seed=9),
         READ_LEN)
@@ -1939,6 +1939,7 @@ def phase_addmodel(dev, kernels, tmp):
     from advntr_tpu_torch.engine import finder as finder_mod
     from advntr_tpu_torch.engine import training
     from advntr_tpu_torch.io.fasta import load_chromosome
+    from advntr_tpu_torch.models import bank as bank_mod
     from advntr_tpu_torch.models.db import load_unique_vntrs_data
     from advntr_tpu_torch.ops import viterbi_fused as vf
     from advntr_tpu_torch.synthetic import (write_addmodel_reference,
@@ -1949,7 +1950,7 @@ def phase_addmodel(dev, kernels, tmp):
     db = os.path.join(wd, "models.db")
     spied = [(training, "find_recruitment_score_threshold"),
              (training, "simulate_false_filtered_reads"),
-             (finder_mod, "build_locus_payload"),
+             (bank_mod, "build_locus_payload"),
              (finder_mod.VNTRFinder, "score_reads")]
     calls = {name: [] for _, name in spied}
     originals = [(obj, name, _spy(obj, name, calls[name]))
@@ -2042,7 +2043,8 @@ def phase_trained_hmm(dev, tmp):
     """Trained-HMM JSON models on the card: the CSTB model imported as it
     is (structured) and a refused topology (the dense fallback)."""
     from advntr_tpu_torch.engine import device_analytics as da
-    from advntr_tpu_torch.engine.finder import LocusModelCache, VNTRFinder
+    from advntr_tpu_torch.engine.finder import VNTRFinder
+    from advntr_tpu_torch.engine.locus_model import LocusModelCache
     from advntr_tpu_torch.models.compiler import compile_graph
     from advntr_tpu_torch.models.hmm_json import (
         graph_from_pomegranate_json, graph_to_pomegranate_json)
@@ -2104,7 +2106,8 @@ def phase_trained_hmm(dev, tmp):
     g = graph_from_pomegranate_json(
         graph_to_pomegranate_json(refused_topology(graph)))
     art = compile_graph(g)
-    lm = LocusModelCache(device=dev)._build_imported(g, art)
+    lm = LocusModelCache(device=dev).build(art, graph=g,
+                                           dense_fallback=True)
     check(lm.model is None and lm.dense is not None,
           "the refused topology did not give a dense model")
     batch, lengths = encode_reads(
@@ -2121,7 +2124,8 @@ def phase_trained_hmm(dev, tmp):
     ms = time_ms(lambda: da.read_stats_dense(lm.dense, seqs, lens),
                  iters=3, warmup=0)
     k = DENSE_CPU_READS
-    host = LocusModelCache(device="cpu")._build_imported(g, art)
+    host = LocusModelCache(device="cpu").build(art, graph=g,
+                                               dense_fallback=True)
     want = da.read_stats_dense(host.dense, seqs[:k].cpu(), lens[:k].cpu())
     check(torch.allclose(res["logp"][:k].cpu(), want["logp"], **LOGP_TOL),
           "dense fallback: logp on the card differs from the CPU's")
@@ -2152,7 +2156,7 @@ def phase_buildbank(tmp, panel_text):
     import contextlib
     import io
     from advntr_tpu_torch import cli
-    from advntr_tpu_torch.engine import finder as finder_mod
+    from advntr_tpu_torch.models import bank as bank_mod
     from advntr_tpu_torch.models.db import load_unique_vntrs_data
     from advntr_tpu_torch.synthetic import write_panel
     wd = os.path.join(tmp, "bank")
@@ -2165,15 +2169,15 @@ def phase_buildbank(tmp, panel_text):
               "150", "-t", "4"])
     build_s = time.perf_counter() - t0
     bank = os.path.join(wd, "model_bank")
-    names = {os.path.basename(finder_mod.bank_payload_path(
-        bank, r.id, int(round(150 / len(r.pattern) + 0.5)), 150, 0.05))
+    names = {os.path.basename(bank_mod.bank_payload_path(
+        bank, r.id, bank_mod.copies_for_hmm(r.pattern, 150), 150, 0.05))
         for r in refs}
     check(set(os.listdir(bank)) ==
-          names | {finder_mod.dense_payload_path(n) for n in names},
+          names | {bank_mod.dense_payload_path(n) for n in names},
           f"buildbank wrote {sorted(os.listdir(bank))[:3]}..., not the "
           "reference's file names and their dense tables' companions")
     builds = []
-    orig = _spy(finder_mod, "build_locus_payload", builds)
+    orig = _spy(bank_mod, "build_locus_payload", builds)
     try:
         text, warm_s = run_cli(["genotype", "-a", bam, "-m", db,
                                 "--working_directory", wd,
@@ -2181,7 +2185,7 @@ def phase_buildbank(tmp, panel_text):
                                 os.path.join(wd, "out.txt"), "--device",
                                 "cuda"])
     finally:
-        finder_mod.build_locus_payload = orig
+        bank_mod.build_locus_payload = orig
     check(not builds, f"warm genotype built {len(builds)} models on the "
                       "host despite the bank")
     check(text == panel_text, "genotype from the bank differs from phase "
@@ -2768,8 +2772,7 @@ def struct_timing(dev) -> dict:
     read_stats_struct_ckpt, each with its launches a call and peak MiB;
     the long-read batch also held to B1/B2's checkpointed path."""
     from advntr_tpu_torch.engine import device_analytics as da
-    from advntr_tpu_torch.engine.finder import LocusModelCache
-    from advntr_tpu_torch.models.struct_compiler import build_structured
+    from advntr_tpu_torch.engine.locus_model import LocusModelCache
     from advntr_tpu_torch.ops.struct_model import TorchStructModel
     from advntr_tpu_torch.ops.viterbi_struct import StructDeviceModel
     from advntr_tpu_torch.synthetic import (build_cstb_locus,
@@ -2802,8 +2805,7 @@ def struct_timing(dev) -> dict:
     # the long-read batch, the model padded as the engine pads it
     graph, art, rng, hap = build_long_read_locus(LONG_L)
     with kernel_env("struct"):
-        lm = LocusModelCache(device=dev)._build_from_payload(
-            art, build_structured(graph, art))
+        lm = LocusModelCache(device=dev).build(art, graph=graph)
     t0 = time.perf_counter()
     lsm = lm.struct_model()
     sync(dev)

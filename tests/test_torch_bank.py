@@ -18,8 +18,11 @@ import torch
 
 from advntr_tpu.engine import finder as jax_finder
 from advntr_tpu.models.reference_vntr import ReferenceVNTR as JaxReferenceVNTR
-from advntr_tpu_torch.engine import finder
+from advntr_tpu_torch.engine.locus_model import LocusModelCache
+from advntr_tpu_torch.models import bank
+from advntr_tpu_torch.models.compiler import ModelArtifact
 from advntr_tpu_torch.models.reference_vntr import ReferenceVNTR
+from advntr_tpu_torch.models.struct_compiler import StructModel
 from advntr_tpu_torch.ops.struct_model import STACKED
 from advntr_tpu_torch.synthetic import CSTB_PATTERN, rand_seq
 
@@ -39,7 +42,7 @@ def _ref(cls, vid, pattern):
 
 def _write_bank(bank_dir, payload, vid, copies):
     os.makedirs(bank_dir, exist_ok=True)
-    path = finder.bank_payload_path(str(bank_dir), vid, copies, 100, 0.05)
+    path = bank.bank_payload_path(str(bank_dir), vid, copies, 100, 0.05)
     with gzip.open(path, "wb", compresslevel=1) as fh:
         pickle.dump(payload, fh)
     return path
@@ -47,7 +50,7 @@ def _write_bank(bank_dir, payload, vid, copies):
 
 def _tables(payload):
     art, sm = payload
-    lm = finder.LocusModelCache(device="cpu")._build_from_payload(art, sm)
+    lm = LocusModelCache(device="cpu").build(art, sm)
     return lm, {n: getattr(lm.model, n).numpy() for n in STACKED}
 
 
@@ -56,11 +59,12 @@ import sys
 sys.modules["jax"] = None
 sys.modules["advntr_tpu"] = None
 import numpy as np
-from advntr_tpu_torch.engine import finder
-art, sm = finder.load_reference_payload(sys.argv[1])
+from advntr_tpu_torch.engine.locus_model import LocusModelCache
+from advntr_tpu_torch.models import bank
+art, sm = bank.load_reference_payload(sys.argv[1])
 assert type(art).__module__ == "advntr_tpu_torch.models.compiler"
 assert type(sm).__module__ == "advntr_tpu_torch.models.struct_compiler"
-lm = finder.LocusModelCache(device="cpu")._build_from_payload(art, sm)
+lm = LocusModelCache(device="cpu").build(art, sm)
 np.savez(sys.argv[2], **{n: getattr(lm.model, n).numpy()
                          for n in sys.argv[3].split(",")})
 assert not [m for m in sys.modules if m.startswith("advntr_tpu.")]
@@ -82,10 +86,10 @@ def test_reference_bank_read_without_the_reference_package(
          ",".join(STACKED)], cwd=tmp_path, env=env, capture_output=True,
         text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
-    own_payload = finder.build_locus_payload(
+    own_payload = bank.build_locus_payload(
         _ref(ReferenceVNTR, vid, pattern), copies, 100, 0.05)
     own_path = _write_bank(tmp_path / "own_bank", own_payload, vid, copies)
-    lm, own = _tables(finder.load_reference_payload(own_path))
+    lm, own = _tables(bank.load_reference_payload(own_path))
     got = np.load(out)
     for name in STACKED:
         np.testing.assert_array_equal(got[name], own[name], err_msg=name)
@@ -102,12 +106,12 @@ def test_payload_from_arrays_is_the_in_memory_loader():
         _ref(JaxReferenceVNTR, vid, pattern), copies, 100, 0.05)
     fields = lambda obj: {f.name: getattr(obj, f.name)
                           for f in dataclasses.fields(obj)}
-    own_art, own_sm = finder.payload_from_arrays(fields(art), fields(sm))
+    own_art, own_sm = ModelArtifact(**fields(art)), StructModel(**fields(sm))
     assert type(own_art).__module__ == "advntr_tpu_torch.models.compiler"
     assert type(own_sm).__module__ == \
         "advntr_tpu_torch.models.struct_compiler"
     _, got = _tables((own_art, own_sm))
-    _, want = _tables(finder.build_locus_payload(
+    _, want = _tables(bank.build_locus_payload(
         _ref(ReferenceVNTR, vid, pattern), copies, 100, 0.05))
     for name in STACKED:
         np.testing.assert_array_equal(got[name], want[name], err_msg=name)
@@ -122,8 +126,8 @@ def test_other_reference_classes_are_refused(tmp_path, obj):
     with gzip.open(path, "wb") as fh:
         pickle.dump((obj, None), fh)
     if type(obj).__module__.startswith("advntr_tpu.models."):
-        loaded, _ = finder.load_reference_payload(str(path))
+        loaded, _ = bank.load_reference_payload(str(path))
         assert type(loaded) is ReferenceVNTR and loaded.pattern == "ACG"
     else:
         with pytest.raises(pickle.UnpicklingError, match="advntr_tpu"):
-            finder.load_reference_payload(str(path))
+            bank.load_reference_payload(str(path))

@@ -15,6 +15,8 @@ import torch
 
 from advntr_tpu_torch import cli
 from advntr_tpu_torch.engine import finder
+from advntr_tpu_torch.engine.locus_model import LocusModelCache
+from advntr_tpu_torch.models import bank
 from advntr_tpu_torch.engine.simulate import simulate_diploid_reads
 from advntr_tpu_torch.models.db import (create_vntrs_database,
                                         load_unique_vntrs_data,
@@ -42,12 +44,12 @@ def _ref(vid=301645, pattern=CSTB_PATTERN):
 
 
 def _finder(bank_dir=None):
-    return finder.VNTRFinder(_ref(), model_cache=finder.LocusModelCache(
+    return finder.VNTRFinder(_ref(), model_cache=LocusModelCache(
         "cpu", bank_dir=str(bank_dir) if bank_dir else None))
 
 
 def _bank_path(vf, bank_dir):
-    return finder.bank_payload_path(
+    return bank.bank_payload_path(
         str(bank_dir), vf.reference_vntr.id,
         vf.get_copies_for_hmm(READ_LEN), READ_LEN,
         vf.config.max_error_rate)
@@ -73,7 +75,7 @@ def locus():
 
 
 def _assert_no_dense(art):
-    assert all(getattr(art, f) is None for f in finder.DENSE_FIELDS)
+    assert all(getattr(art, f) is None for f in bank.DENSE_FIELDS)
 
 
 def test_bank_file_is_the_decode_payload(tmp_path, locus):
@@ -83,12 +85,12 @@ def test_bank_file_is_the_decode_payload(tmp_path, locus):
         lm = vf.get_model(READ_LEN)
     path = _bank_path(vf, tmp_path)
     assert os.listdir(tmp_path) == [os.path.basename(path)]
-    art, sm = finder.load_reference_payload(path)
+    art, sm = bank.load_reference_payload(path)
     _assert_no_dense(art)
     # the model built in the call keeps its whole artifact
-    assert finder.has_dense_tables(lm.art)
+    assert bank.has_dense_tables(lm.art)
     for f in dataclasses.fields(art):
-        if f.name not in finder.DENSE_FIELDS:
+        if f.name not in bank.DENSE_FIELDS:
             np.testing.assert_array_equal(getattr(art, f.name),
                                           getattr(full.art, f.name))
     assert counters["model.built"] == 1
@@ -141,11 +143,11 @@ def test_dense_tables_load_on_demand(tmp_path, locus, companion):
     whose tables are then banked beside it."""
     full_vf, full, mapped, unmapped = locus
     _finder(tmp_path).get_model(READ_LEN)
-    dense = finder.dense_payload_path(_bank_path(full_vf, tmp_path))
+    dense = bank.dense_payload_path(_bank_path(full_vf, tmp_path))
     # a default-mode build banks no companion
     assert not os.path.exists(dense)
     if companion:
-        finder.write_payload(dense, finder.dense_tables(full.art))
+        bank.write_payload(dense, bank.dense_tables(full.art))
     paths = _paths(full_vf, full, mapped, unmapped)
     assert paths
     vf = _finder(tmp_path)
@@ -159,8 +161,8 @@ def test_dense_tables_load_on_demand(tmp_path, locus, companion):
     assert counters.get("model.dense_rebuild", 0) == int(not companion)
     assert counters.get("model.dense_write", 0) == int(not companion)
     assert "model.built" not in counters
-    tables = finder.load_reference_payload(dense)
-    for f in finder.DENSE_FIELDS:
+    tables = bank.load_reference_payload(dense)
+    for f in bank.DENSE_FIELDS:
         np.testing.assert_array_equal(tables[f], getattr(full.art, f), f)
         np.testing.assert_array_equal(getattr(lm.art, f),
                                       getattr(full.art, f), f)
@@ -171,7 +173,7 @@ def test_built_model_banks_its_dense_tables_when_read(tmp_path, locus):
     that reads them rebuilds nothing and writes the bank's companion."""
     full_vf, full, mapped, unmapped = locus
     vf = _finder(tmp_path)
-    dense = finder.dense_payload_path(_bank_path(vf, tmp_path))
+    dense = bank.dense_payload_path(_bank_path(vf, tmp_path))
     with _call() as counters:
         lm = vf.get_model(READ_LEN)
         path = _paths(full_vf, full, mapped, unmapped)[0]
@@ -188,13 +190,13 @@ def test_full_bank_payload_keeps_its_tables(tmp_path, locus):
     port, or the reference's) needs no companion and no rebuild."""
     full_vf, full, _, _ = locus
     path = _bank_path(full_vf, tmp_path)
-    finder.write_payload(path, finder.build_locus_payload(
+    bank.write_payload(path, bank.build_locus_payload(
         full_vf.reference_vntr, full_vf.get_copies_for_hmm(READ_LEN),
         READ_LEN, full_vf.config.max_error_rate))
     vf = _finder(tmp_path)
     with _call() as counters:
         lm = vf.get_model(READ_LEN)
-        assert lm.source is None and finder.has_dense_tables(lm.art)
+        assert lm.source is None and bank.has_dense_tables(lm.art)
         _struct_equal(lm.struct_model(), full.struct_model())
     assert counters["model.bank_hit"] == 1
     assert not any(counters.get(c) for c in DENSE_COUNTERS)
@@ -210,22 +212,22 @@ def test_buildbank_writes_decode_payload_and_companion(tmp_path, capsys):
             "-l", str(READ_LEN), "-t", "1"]
     cli.main(argv)
     assert "2 loci to compile (0 already banked)" in capsys.readouterr().out
-    bank = tmp_path / "model_bank"
+    bank_dir = tmp_path / "model_bank"
     names = set()
     for ref in load_unique_vntrs_data(db):
-        copies = int(round(READ_LEN / len(ref.pattern) + 0.5))
-        path = finder.bank_payload_path(str(bank), ref.id, copies, READ_LEN,
-                                        0.05)
-        dense = finder.dense_payload_path(path)
+        copies = bank.copies_for_hmm(ref.pattern, READ_LEN)
+        path = bank.bank_payload_path(str(bank_dir), ref.id, copies,
+                                      READ_LEN, 0.05)
+        dense = bank.dense_payload_path(path)
         names |= {os.path.basename(path), os.path.basename(dense)}
-        art, _ = finder.load_reference_payload(path)
+        art, _ = bank.load_reference_payload(path)
         _assert_no_dense(art)
-        tables = finder.load_reference_payload(dense)
-        assert set(tables) == set(finder.DENSE_FIELDS)
-        full, _ = finder.build_locus_payload(ref, copies, READ_LEN, 0.05)
-        for f in finder.DENSE_FIELDS:
+        tables = bank.load_reference_payload(dense)
+        assert set(tables) == set(bank.DENSE_FIELDS)
+        full, _ = bank.build_locus_payload(ref, copies, READ_LEN, 0.05)
+        for f in bank.DENSE_FIELDS:
             np.testing.assert_array_equal(tables[f], getattr(full, f), f)
-    assert set(os.listdir(bank)) == names and len(names) == 4
+    assert set(os.listdir(bank_dir)) == names and len(names) == 4
     cli.main(argv)
     assert "0 loci to compile (2 already banked)" in capsys.readouterr().out
-    assert set(os.listdir(bank)) == names
+    assert set(os.listdir(bank_dir)) == names

@@ -91,11 +91,11 @@ def test_reference_bank_consumed_without_host_build(sample, monkeypatch):
     jax_cli.main(["buildbank", "-m", sample["db"], "--working_directory",
                   str(wd), "-l", "100", "-t", "1"])
     assert len(os.listdir(wd / "model_bank")) == 1
-    import advntr_tpu_torch.engine.finder as finder
+    import advntr_tpu_torch.models.bank as bank
 
     def boom(*a, **k):
         raise AssertionError("host model build ran despite a warm bank")
 
-    monkeypatch.setattr(finder, "build_locus_payload", boom)
+    monkeypatch.setattr(bank, "build_locus_payload", boom)
     got = _genotype(cli.main, sample, wd, [], ["--device", "cpu"])
     assert got.splitlines() == ["301645", "2/5"]

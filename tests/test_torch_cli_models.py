@@ -85,7 +85,7 @@ def test_buildbank_precompiles_and_reused(cstb, tmp_path, monkeypatch,
     the reference's file name (beside it the dense tables' companion), a
     rerun that builds nothing, and a warm genotype run with no host model
     build; the reference's buildbank writes the same file name."""
-    import advntr_tpu_torch.engine.finder as finder
+    import advntr_tpu_torch.models.bank as bank
 
     wd = str(tmp_path / "own")
     argv = ["buildbank", "-m", cstb["db"], "--working_directory", wd,
@@ -93,22 +93,22 @@ def test_buildbank_precompiles_and_reused(cstb, tmp_path, monkeypatch,
     cli.main(argv)
     assert "1 loci to compile (0 already banked), 2 workers" in \
         capsys.readouterr().out
-    bank = os.path.join(wd, "model_bank")
-    files = sorted(os.listdir(bank))
+    bank_dir = os.path.join(wd, "model_bank")
+    files = sorted(os.listdir(bank_dir))
     jax_cli.main(["buildbank", "-m", cstb["db"], "--working_directory",
                   str(tmp_path / "ref"), "-l", "100", "-t", "1"])
     ref_files = os.listdir(tmp_path / "ref" / "model_bank")
     assert len(ref_files) == 1 and ref_files[0].startswith("model_301645_")
     assert files == sorted(ref_files +
-                           [finder.dense_payload_path(ref_files[0])])
+                           [bank.dense_payload_path(ref_files[0])])
     cli.main(argv)
     assert "0 loci to compile (1 already banked)" in capsys.readouterr().out
-    assert sorted(os.listdir(bank)) == files
+    assert sorted(os.listdir(bank_dir)) == files
 
     def boom(*a, **k):
         raise AssertionError("host model build ran despite a warm bank")
 
-    monkeypatch.setattr(finder, "build_locus_payload", boom)
+    monkeypatch.setattr(bank, "build_locus_payload", boom)
     out = os.path.join(wd, "warm.txt")
     cli.main(["genotype", "-a", cstb["bam"], "-m", cstb["db"],
               "--working_directory", wd, "--disable_logging", "-o", out,

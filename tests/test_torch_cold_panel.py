@@ -19,6 +19,7 @@ import torch
 
 from advntr_tpu_torch import cli
 from advntr_tpu_torch.engine import finder
+from advntr_tpu_torch.models import bank
 from advntr_tpu_torch.utils import profiler
 from portbench import generate, harness
 from portbench.metrics import build_us_per_state
@@ -32,7 +33,7 @@ MANIFEST = json.loads((ROOT / "BENCHMARK.json").read_text())
 CELL = "ill6719.wgs30.built"
 LOCI = 17
 READ_LENGTH = 60
-# the artifact's O(n^2) tables, named here apart from finder.DENSE_FIELDS
+# the artifact's O(n^2) tables, named here apart from bank.DENSE_FIELDS
 DENSE = ("log_T", "t_unit_starts", "t_unit_ends", "hop_choice",
          "closure_parent")
 
@@ -85,7 +86,7 @@ def calls(tmp_path_factory):
                                             LOCI / 6719)
     generate.write_bam(bam, reads, placed, mapq=60)
     built = []
-    orig = finder.build_locus_payload
+    orig = bank.build_locus_payload
 
     def keep(*args):
         payload = orig(*args)
@@ -95,7 +96,7 @@ def calls(tmp_path_factory):
     cold, warm = {}, {}
     os.makedirs(tmp / "cold")
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(finder, "build_locus_payload", keep)
+        mp.setattr(bank, "build_locus_payload", keep)
         cold_text, cold_totals = _genotype(db, bam, tmp / "cold", cold)
     cli.main(["buildbank", "-m", db, "--working_directory",
               str(tmp / "warm"), "-l", str(READ_LENGTH), "-t", "1"])
@@ -166,8 +167,8 @@ def test_cell_run_against_the_reference(build, tmp_path, monkeypatch):
     # harness's own check for it concerns the benchmark's process
     monkeypatch.setattr(harness, "forbidden_modules", lambda: [])
     if build != "sound":
-        monkeypatch.setattr(finder, "build_locus_payload",
-                            _roll_an_emission_row(finder.build_locus_payload))
+        monkeypatch.setattr(bank, "build_locus_payload",
+                            _roll_an_emission_row(bank.build_locus_payload))
     code, result = harness.execute(tiny_spec(), 2 ** 31 + 77, 0.01, False,
                                    device="cpu",
                                    t_process=time.perf_counter())

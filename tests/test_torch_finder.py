@@ -12,7 +12,8 @@ from advntr_tpu.engine.finder import LocusModelCache as JaxCache
 from advntr_tpu.engine.finder import VNTRFinder as JaxFinder
 from advntr_tpu.engine.simulate import simulate_diploid_reads
 from advntr_tpu.models.reference_vntr import ReferenceVNTR
-from advntr_tpu_torch.engine.finder import LocusModelCache, VNTRFinder
+from advntr_tpu_torch.engine.finder import VNTRFinder
+from advntr_tpu_torch.engine.locus_model import LocusModelCache
 from advntr_tpu_torch.synthetic import CSTB_PATTERN, rand_seq
 
 # the suite runs test files in parallel worker processes: one torch thread

@@ -24,7 +24,8 @@ from advntr_tpu.models.compiler import compile_graph as jcompile_graph
 from advntr_tpu_torch import dna
 from advntr_tpu_torch.config import Config
 from advntr_tpu_torch.engine import analyzer, device_analytics as da
-from advntr_tpu_torch.engine.finder import LocusModelCache, VNTRFinder
+from advntr_tpu_torch.engine.finder import VNTRFinder
+from advntr_tpu_torch.engine.locus_model import LocusModelCache
 from advntr_tpu_torch.models import db
 from advntr_tpu_torch.models.compiler import compile_graph
 from advntr_tpu_torch.models.graph import build_read_matcher
@@ -132,7 +133,7 @@ def test_dense_fallback_stats_equal_reference(read_length, n_reads,
     doc = graph_to_pomegranate_json(refused_topology(g))
     cache = LocusModelCache("cpu")
     g_own = graph_from_pomegranate_json(doc)
-    lm = cache._build_imported(g_own, compile_graph(g_own))
+    lm = cache.build(compile_graph(g_own), graph=g_own, dense_fallback=True)
     assert lm.model is None and lm.n_pad % 128 == 0
     reads = simulate_cstb_reads(left, pattern, right, read_length, n_reads)
     reads[3] = reads[3][:1]

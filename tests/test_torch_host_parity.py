@@ -99,9 +99,9 @@ def test_seam_functions_equal_their_originals():
     """The numpy Viterbi of reference_vntr.py's repeat finder, the numpy
     local alignment of ops/align.py, the host numpy parts of the
     posterior and Baum-Welch modules (``log_sub``, the M-step), the
-    decoy scan of the training module and the finder's artifact padding
-    are verbatim parts of modules the port does not copy whole; so is the
-    NEG32 floor."""
+    decoy scan of the training module and the locus model's artifact
+    padding are verbatim parts of modules the port does not copy whole;
+    so is the NEG32 floor."""
     import inspect
 
     from advntr_tpu.engine import finder as jfinder
@@ -110,7 +110,7 @@ def test_seam_functions_equal_their_originals():
     from advntr_tpu.ops import baum_welch as jbw
     from advntr_tpu.ops import posterior as jposterior
     from advntr_tpu.ops import viterbi as jviterbi
-    from advntr_tpu_torch.engine import finder, training
+    from advntr_tpu_torch.engine import locus_model, training
     from advntr_tpu_torch.ops import align, baum_welch, posterior, viterbi
     pairs = [(viterbi.viterbi_numpy, jviterbi.viterbi_numpy),
              (align.local_align, jalign.local_align),
@@ -119,7 +119,7 @@ def test_seam_functions_equal_their_originals():
              (training.rolling_kmer_codes, jtraining.rolling_kmer_codes),
              (training.simulate_false_filtered_reads,
               jtraining.simulate_false_filtered_reads),
-             (finder._pad_artifact, jfinder._pad_artifact)]
+             (locus_model._pad_artifact, jfinder._pad_artifact)]
     for own, ref in pairs:
         assert inspect.getsource(own) == inspect.getsource(ref), own.__name__
     assert viterbi.NEG32 == jviterbi.NEG32

@@ -655,11 +655,12 @@ def test_run_device_paths_equal_twin_at_cstb_cell(cuda):
     decode through it): one B1 and one B2 launch at the CSTB cell (the
     engine's padding, P 512; 4,096 reads of 150 bp, L 160), paths and
     statistics bit-identical to the plain twins on the card."""
-    from advntr_tpu_torch.engine.finder import LocusModelCache, VNTRFinder
+    from advntr_tpu_torch.engine.finder import VNTRFinder
+    from advntr_tpu_torch.engine.locus_model import LocusModelCache
     from advntr_tpu_torch.synthetic import (build_cstb_locus, encode_reads,
                                             simulate_cstb_reads)
     graph, art, left, right, pattern = build_cstb_locus(150)
-    lm = LocusModelCache(device=cuda)._build(graph, art)
+    lm = LocusModelCache(device=cuda).build(art, graph=graph)
     assert (lm.art.n_states, lm.model.P) == (927, 512)
     batch, lengths = encode_reads(
         simulate_cstb_reads(left, pattern, right, 150, 4096, seed=9), 150)
@@ -768,7 +769,7 @@ def test_dense_fallback_on_card_equals_cpu(cuda):
     fallback on the card gives the CPU's statistics and paths, logp
     within rtol 1e-4 / atol 1e-2, with its rows in chunks."""
     from advntr_tpu_torch.engine import device_analytics as da
-    from advntr_tpu_torch.engine.finder import LocusModelCache
+    from advntr_tpu_torch.engine.locus_model import LocusModelCache
     from advntr_tpu_torch.models.compiler import compile_graph
     from advntr_tpu_torch.synthetic import (build_cstb_locus, encode_reads,
                                             refused_topology,
@@ -781,7 +782,8 @@ def test_dense_fallback_on_card_equals_cpu(cuda):
     batch, lengths = encode_reads(reads, 64)
     outs = []
     for dev in (torch.device("cpu"), cuda):
-        lm = LocusModelCache(device=dev)._build_imported(g, art)
+        lm = LocusModelCache(device=dev).build(art, graph=g,
+                                               dense_fallback=True)
         assert lm.model is None and lm.dense.log_T.device.type == dev.type
         n = lm.dense.n_states
         outs.append(da.read_stats_dense(

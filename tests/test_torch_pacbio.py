@@ -21,7 +21,8 @@ from advntr_tpu_torch import cli, dna
 from advntr_tpu_torch.config import Config
 from advntr_tpu_torch.engine import device_analytics as tda
 from advntr_tpu_torch.engine.analyzer import GenomeAnalyzer
-from advntr_tpu_torch.engine.finder import LocusModelCache, VNTRFinder
+from advntr_tpu_torch.engine.finder import VNTRFinder
+from advntr_tpu_torch.models import bank
 from advntr_tpu_torch.engine.simulate import haplotype_sequence, mutate
 from advntr_tpu_torch.io.bam import BamRead, BamReader, BamWriter, build_bai
 from advntr_tpu_torch.models.db import (create_vntrs_database,
@@ -319,11 +320,11 @@ def test_cli_pacbio_host_error_gives_the_error_row(tmp_path, monkeypatch,
                                 corrected)
     else:
         # the port's host build (the upload to the device is not host work)
-        def payload(self, key, ref_vntr, orig=LocusModelCache._payload):
+        def payload(bank_dir, ref_vntr, *a, orig=bank.read_or_build):
             if ref_vntr.id == bad:
                 raise RuntimeError("model build failed")
-            return orig(self, key, ref_vntr)
-        monkeypatch.setattr(LocusModelCache, "_payload", payload)
+            return orig(bank_dir, ref_vntr, *a)
+        monkeypatch.setattr(bank, "read_or_build", payload)
 
         def get_model(self, *a, orig=JFinder.get_model, **kw):
             if self.reference_vntr.id == bad:

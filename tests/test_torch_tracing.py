@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from advntr_tpu_torch import cli
-from advntr_tpu_torch.engine import analyzer as analyzer_mod
+from advntr_tpu_torch.engine import device_analytics as da
 from advntr_tpu_torch.engine import finder as finder_mod
 from advntr_tpu_torch.synthetic import write_cstb_sample, write_pacbio_panel
 from advntr_tpu_torch.utils import profiler
@@ -245,12 +245,12 @@ def _held_to(parents, records):
 
 def _launches(monkeypatch):
     shapes = []
-    grouped = analyzer_mod.da.read_stats_grouped
+    grouped = da.read_stats_grouped
 
     def spy(models, seqs, lengths, *a, **k):
         shapes.append(tuple(seqs.shape))
         return grouped(models, seqs, lengths, *a, **k)
-    monkeypatch.setattr(analyzer_mod.da, "read_stats_grouped", spy)
+    monkeypatch.setattr(da, "read_stats_grouped", spy)
     return shapes
 
 

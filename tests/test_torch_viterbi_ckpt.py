@@ -21,6 +21,7 @@ from advntr_tpu.ops.viterbi import viterbi_numpy
 from advntr_tpu.ops.viterbi_struct import StructDeviceModel
 from advntr_tpu_torch.engine import device_analytics as tda
 from advntr_tpu_torch.engine import finder as tfinder
+from advntr_tpu_torch.engine import locus_model as tlm
 from advntr_tpu_torch.ops import viterbi_ckpt as vc
 from advntr_tpu_torch.ops import viterbi_fused as vf
 from advntr_tpu_torch.ops.struct_model import TorchStructModel
@@ -247,11 +248,11 @@ def test_ckpt_pacbio_scale():
 def test_run_device_routes_long_reads(monkeypatch):
     """finder.run_device sends batches longer than CKPT_TRACEBACK_L to the
     checkpointed path, with CKPT_SEGMENT columns a segment; both are
-    module constants."""
-    monkeypatch.setattr(tfinder, "CKPT_TRACEBACK_L", 64)
-    monkeypatch.setattr(tfinder, "CKPT_SEGMENT", 16)
+    constants of the locus model's module."""
+    monkeypatch.setattr(tlm, "CKPT_TRACEBACK_L", 64)
+    monkeypatch.setattr(tlm, "CKPT_SEGMENT", 16)
     art, sm, tm = _models((["CAGCAG"] * 3, "ACGTTGCA", "TTACGGAT", 3))
-    lm = tfinder.LocusModel(model=tm, n_pad=art.n_states)
+    lm = tlm.LocusModel(model=tm, n_pad=art.n_states)
     read = "ACGTTGCA" + "CAGCAG" * 3 + "TTACGGAT"
     _, batch, lengths = _batch([read], multiple=128, pad_to=128)
 
@@ -324,11 +325,11 @@ def test_run_device_routes_long_reads_struct(monkeypatch):
     columns, giving the whole-read path's statistics; no B1/B2 path is
     taken."""
     monkeypatch.setenv("ADVNTR_TPU_KERNEL", "struct")
-    monkeypatch.setattr(tfinder, "CKPT_TRACEBACK_L", 64)
-    monkeypatch.setattr(tfinder, "CKPT_SEGMENT", 16)
-    cache = tfinder.LocusModelCache("cpu")
+    monkeypatch.setattr(tlm, "CKPT_TRACEBACK_L", 64)
+    monkeypatch.setattr(tlm, "CKPT_SEGMENT", 16)
+    cache = tlm.LocusModelCache("cpu")
     art, sm, _ = _models((["CAGCAG"] * 3, "ACGTTGCA", "TTACGGAT", 3))
-    lm = cache._upload(art, sm, art.n_states)
+    lm = cache.build(art, sm)
     assert lm.kernel == "struct" and lm.struct is None
     read = "ACGTTGCA" + "CAGCAG" * 3 + "TTACGGAT"
     _, batch, lengths = _batch([read, read[:50], "A"], multiple=128,
