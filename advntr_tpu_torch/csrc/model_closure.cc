@@ -12,9 +12,13 @@
 //
 // Reference semantics being compiled away: pomegranate's per-symbol silent
 // passes, reference pomegranate/hmm.pyx:2044-2083.
+//
+// model_decode_closure computes only what the decode payload holds
+// (models/decode_compiler.py::compile_decode), with the same semantics.
 
 #include <cstdint>
 #include <cmath>
+#include <vector>
 
 extern "C" {
 
@@ -104,6 +108,111 @@ void model_closure(
           s_us[j] = c0_us[k];
           s_ue[j] = c0_ue[k];
         }
+      }
+    }
+  }
+}
+
+// The decode payload's part of model_closure (models/decode_compiler.py):
+// the closure's column at END for each emitting state, the start closure
+// and the start vector, from the edges in sparse form, with no (n_e x n_e)
+// or (n_e x n_s) table.  The closure of row i through the silent DAG reads
+// only row i, so each row is walked alone over one buffer of n_s values,
+// in model_closure's topological order and edge order, with its strict >:
+// the same values, the same ties, the same crossings along the argmax path.
+// A row starts at its lowest direct silent target (nothing before it is
+// reachable) and stops at END (what follows cannot reach it).
+//
+// Arrays:
+//   es_count  (n_e+1)      CSR offsets of each emitting state's direct
+//   es_dst    (E_es)       edges into the silent DAG: target, log-weight
+//   es_w      (E_es)       (finite weights only)
+//   ss_count, ss_src, ss_w as model_closure's
+//   se_count  (n_s+1)      CSR offsets of each silent state's edges to
+//   se_dst    (E_se)       emitting states, targets ascending, finite
+//   se_w      (E_se)       weights only
+//   is_us/ue  (n_s)
+//   log_end,e_us,e_ue (n_e)       out: C[:, end_s] and its crossings
+//   C0,p0,c0_us,c0_ue (n_s)       start closure (C0 pre-seeded at start_s)
+//   log_start,start_choice,s_us,s_ue (n_e)   as model_closure's
+void model_decode_closure(
+    int32_t n_e, int32_t n_s, int32_t end_s,
+    const int32_t* es_count, const int32_t* es_dst, const double* es_w,
+    const int32_t* ss_count, const int32_t* ss_src, const double* ss_w,
+    const int32_t* se_count, const int32_t* se_dst, const double* se_w,
+    const int8_t* is_us, const int8_t* is_ue,
+    double* log_end, int16_t* e_us, int16_t* e_ue,
+    double* C0, int32_t* p0, int16_t* c0_us, int16_t* c0_ue,
+    double* log_start, int32_t* start_choice, int16_t* s_us, int16_t* s_ue) {
+  std::vector<double> c(n_s);
+  std::vector<int16_t> cu(n_s), ce(n_s);
+  for (int32_t i = 0; i < n_e; ++i) {
+    int32_t lo = end_s + 1;
+    for (int32_t e = es_count[i]; e < es_count[i + 1]; ++e)
+      if (es_dst[e] < lo) lo = es_dst[e];
+    log_end[i] = -INFINITY;
+    e_us[i] = 0;
+    e_ue[i] = 0;
+    if (lo > end_s) continue;
+    for (int32_t s = lo; s <= end_s; ++s) {
+      c[s] = -INFINITY;
+      cu[s] = 0;
+      ce[s] = 0;
+    }
+    for (int32_t e = es_count[i]; e < es_count[i + 1]; ++e) {
+      const int32_t s = es_dst[e];
+      if (s > end_s) continue;
+      c[s] = es_w[e];
+      cu[s] = is_us[s];
+      ce[s] = is_ue[s];
+    }
+    for (int32_t k = lo; k <= end_s; ++k) {
+      const int8_t us_k = is_us[k], ue_k = is_ue[k];
+      for (int32_t e = ss_count[k]; e < ss_count[k + 1]; ++e) {
+        const int32_t src = ss_src[e];
+        const double w = ss_w[e];
+        if (src < lo || w == -INFINITY) continue;
+        const double cs = c[src];
+        if (cs == -INFINITY) continue;
+        const double cand = cs + w;
+        if (cand > c[k]) {
+          c[k] = cand;
+          cu[k] = cu[src] + us_k;
+          ce[k] = ce[src] + ue_k;
+        }
+      }
+    }
+    log_end[i] = c[end_s];
+    e_us[i] = cu[end_s];
+    e_ue[i] = ce[end_s];
+  }
+
+  // ---- start closure, then the start vector over (k, j) ------------------
+  for (int32_t k = 0; k < n_s; ++k) {
+    const int8_t us_k = is_us[k], ue_k = is_ue[k];
+    for (int32_t e = ss_count[k]; e < ss_count[k + 1]; ++e) {
+      const int32_t src = ss_src[e];
+      const double w = ss_w[e];
+      if (w == -INFINITY || C0[src] == -INFINITY) continue;
+      const double cand0 = C0[src] + w;
+      if (cand0 > C0[k]) {
+        C0[k] = cand0;
+        p0[k] = src;
+        c0_us[k] = c0_us[src] + us_k;
+        c0_ue[k] = c0_ue[src] + ue_k;
+      }
+    }
+  }
+  for (int32_t k = 0; k < n_s; ++k) {
+    if (C0[k] == -INFINITY) continue;
+    for (int32_t e = se_count[k]; e < se_count[k + 1]; ++e) {
+      const int32_t j = se_dst[e];
+      const double cand0 = C0[k] + se_w[e];
+      if (cand0 > log_start[j]) {
+        log_start[j] = cand0;
+        start_choice[j] = k;
+        s_us[j] = c0_us[k];
+        s_ue[j] = c0_ue[k];
       }
     }
   }

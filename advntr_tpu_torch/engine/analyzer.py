@@ -368,6 +368,8 @@ class GenomeAnalyzer:
                                                em: bool = False) -> dict:
         if average_coverage:
             self._attach_coverage_corrector(alignment_file)
+        if update and not em:
+            self.model_cache.reads_paths = True
         ckpt_path = self._checkpoint_path(alignment_file)
         done = self._load_checkpoint(ckpt_path)
         pending = [vid for vid in self.target_vntr_ids if vid not in done]
@@ -541,6 +543,7 @@ class GenomeAnalyzer:
         """Print each target locus's ID and its frameshift call (or None).
         A locus whose host work fails is logged and prints nothing, as in
         the reference; a device error propagates."""
+        self.model_cache.reads_paths = True
         unmapped_by_vid = self.recruit_unmapped_reads(alignment_file)
         with open_alignment(alignment_file, self.ref_filename) as bam:
             read_length = self._median_read_length(bam)

@@ -180,12 +180,17 @@ class LocusModelCache:
     Pads the structured position/unit axes to buckets, so that same-bucket
     loci share kernel shapes and score as one group.  ``workers`` builds
     scheduled loci in a spawn process pool while earlier loci score;
-    ``bank_dir`` persists and reuses the built payloads."""
+    ``bank_dir`` persists and reuses the built payloads.  A build compiles
+    the decode payload alone unless its models' dense tables will be
+    read (``whole``)."""
 
     def __init__(self, device="cuda", workers: int = 0,
                  bank_dir: str | None = None):
         self.device = torch.device(device)
         self.bank_dir = bank_dir
+        # set by a mode that reads every model's decoded paths as text
+        # (``-fs``, ``-u``) before its first model
+        self.reads_paths = False
         self._cache: dict = {}
         self._futures: dict = {}
         self._pool = None
@@ -210,6 +215,13 @@ class LocusModelCache:
         # change between calls while the cache persists
         return (key[0].id, *key[1:], _default_kernel())
 
+    def whole(self) -> bool:
+        """Whether a build keeps the artifact's dense tables: for the
+        ``struct`` decoder, whose tables read ``log_T``, and for a mode
+        whose ``visited_states`` read ``hop_choice``.  Elsewhere a mode
+        that reads them fills them from the ``DenseSource``."""
+        return self.reads_paths or _default_kernel() == "struct"
+
     def schedule(self, key) -> None:
         """Queue background compilation of the model of ``key``."""
         k = self._key(key)
@@ -218,7 +230,8 @@ class LocusModelCache:
         if self.bank_dir and os.path.exists(
                 bank.bank_payload_path(self.bank_dir, *k[:4])):
             return  # bank hit; loaded lazily in get()
-        self._futures[k] = self._pool.submit(bank.build_locus_payload, *key)
+        self._futures[k] = self._pool.submit(bank.build_locus_payload, *key,
+                                             self.whole())
 
     def get(self, key) -> LocusModel:
         """The model of ``key``, a ``bank.model_key``, on the cache's
@@ -233,7 +246,8 @@ class LocusModelCache:
         with span("advntr.model", vid=k[0]):
             with host_step():
                 art, sm, source = bank.read_or_build(
-                    self.bank_dir, *key, self._futures.pop(k, None))
+                    self.bank_dir, *key, self._futures.pop(k, None),
+                    self.whole())
             lm = self.build(art, sm)
             lm.source = source
             self._cache[k] = lm

@@ -2,8 +2,10 @@
 files, on the host (no torch here).  A bank file ``*.pkl.gz`` holds the
 decode payload: the artifact without its O(n^2) ``DENSE_FIELDS``, which
 load on demand (``DenseSource``) from the companion ``*.dense.pkl.gz`` or
-a rebuild.  ``load_reference_payload`` also reads the reference's bank
-files, full or slim, without importing that package."""
+a rebuild.  A build for the default decode compiles only that payload
+(``decode_compiler.compile_decode``).  ``load_reference_payload`` also
+reads the reference's bank files, full or slim, without importing that
+package."""
 
 from __future__ import annotations
 
@@ -15,13 +17,15 @@ import os
 import pickle
 
 from advntr_tpu_torch.models.compiler import ModelArtifact, compile_graph
+from advntr_tpu_torch.models.decode_compiler import compile_decode
 from advntr_tpu_torch.models.graph import build_read_matcher
 from advntr_tpu_torch.models.profile import profile_for_repeats
 from advntr_tpu_torch.models.struct_compiler import build_structured
 from advntr_tpu_torch.utils.profiler import count, span
 
-# The artifact's O(n^2) tables: a bank payload leaves them out, since the
-# default decode reads only the O(n) fields (finder.py:115-125)
+# The artifact's O(n^2) tables: a bank payload and a decode-only build
+# leave them out, since the default decode reads only the O(n) fields
+# (finder.py:115-125)
 DENSE_FIELDS = ("log_T", "t_unit_starts", "t_unit_ends", "hop_choice",
                 "closure_parent")
 
@@ -39,6 +43,12 @@ def model_key(ref_vntr, read_length: int, error_rate: float) -> tuple:
     its bank file's name take."""
     return (ref_vntr, copies_for_hmm(ref_vntr.pattern, read_length),
             read_length, error_rate)
+
+
+def dense_bytes(art) -> int:
+    """The bytes of the dense tables the artifact holds."""
+    return sum(getattr(art, f).nbytes for f in DENSE_FIELDS
+               if getattr(art, f) is not None)
 
 
 def has_dense_tables(art) -> bool:
@@ -63,18 +73,20 @@ def read_matcher(ref_vntr, copies: int, flank_size: int,
 
 @span("advntr.model.build")
 def build_locus_payload(ref_vntr, copies: int, flank_size: int,
-                        error_rate: float):
+                        error_rate: float, whole: bool = True):
     """Host-side model construction for one locus (finder.py:128-143):
     profile estimation, graph build, silent-state elimination, structured
-    extraction.  Pure numpy output, so it can run in worker processes; the
-    artifact is whole (``decode_payload`` is what a bank file holds)."""
+    extraction.  Pure numpy output, so it can run in worker processes.
+    With ``whole`` the artifact carries its dense tables
+    (``compile_graph``; ``decode_payload`` is what a bank file holds of
+    it), else it is the decode payload's artifact (``compile_decode``)."""
     with span("advntr.model.build.profile"):
         profile = profile_for_repeats(list(ref_vntr.get_repeat_segments()),
                                       error_rate)
     with span("advntr.model.build.graph"):
         g = read_matcher(ref_vntr, copies, flank_size, error_rate, profile)
     with span("advntr.model.build.compile"):
-        art = compile_graph(g)
+        art = compile_graph(g) if whole else compile_decode(g)
     with span("advntr.model.build.struct"):
         sm = build_structured(g, art)
     return art, sm
@@ -130,16 +142,20 @@ def build_and_save_payload(ref_vntr, copies: int, flank_size: int,
 
 
 def read_or_build(bank_dir: str | None, ref_vntr, copies: int,
-                  flank_size: int, error_rate: float, future=None):
+                  flank_size: int, error_rate: float, future=None,
+                  whole: bool = False):
     """(art, sm, the ``DenseSource`` of art's dense tables or None) of one
     locus: the result of ``future`` where a worker builds it, else its
-    bank file under ``bank_dir``, else a build here.  A build keeps its
-    whole artifact and banks its decode payload; its companion is written
-    when a mode reads the dense tables.  A build here counts its
-    artifact's states (``model.build_states``) and the bytes of its dense
-    tables (``model.build_dense_bytes``), which the cache holds until the
-    wave's ``evict``; a worker's build adds to neither, since its
-    ``advntr.model.build`` span stays in the worker's process."""
+    bank file under ``bank_dir``, else a build here, of the whole artifact
+    where ``whole`` (a caller that reads the dense tables of every model)
+    and else of the decode payload alone.  A build banks its decode
+    payload; the dense tables' companion is written when a mode reads
+    them.  A build here counts its artifact's states
+    (``model.build_states``), the bytes of its dense tables
+    (``model.build_dense_bytes``), which the cache holds until the wave's
+    ``evict``, and whether it compiled the decode payload alone
+    (``model.build_decode_only``); a worker's build adds to none, since
+    its ``advntr.model.build`` span stays in the worker's process."""
     key = (copies, flank_size, error_rate)
     path = bank_payload_path(bank_dir, ref_vntr.id, *key) if bank_dir \
         else None
@@ -154,11 +170,12 @@ def read_or_build(bank_dir: str | None, ref_vntr, copies: int,
         count("model.bank_hit")
         count("model.bank_bytes_read", os.path.getsize(path))
     else:
-        payload = built = build_locus_payload(ref_vntr, *key)
+        payload = built = build_locus_payload(ref_vntr, *key, whole)
         count("model.built")
+        if not whole:
+            count("model.build_decode_only")
         count("model.build_states", len(payload[0].names))
-        count("model.build_dense_bytes", sum(
-            t.nbytes for t in dense_tables(payload[0]).values()))
+        count("model.build_dense_bytes", dense_bytes(payload[0]))
     if built is not None and path is not None and not os.path.exists(path):
         with span("advntr.model.bank_write"):
             os.makedirs(bank_dir, exist_ok=True)

@@ -6,8 +6,9 @@ port's own copies of the reference's sources, the third is the port's
 alone:
 
 - ``load_closure``: ``csrc/model_closure.cc``, the three max-plus closure
-  loops of ``models/compiler.compile_graph`` (the compiler falls back to
-  its numpy loops when no toolchain is found);
+  loops of ``models/compiler.compile_graph`` and the decode payload's part
+  of them, ``models/decode_compiler.compile_decode`` (each compiler falls
+  back to its numpy loops when no toolchain is found);
 - ``SparseViterbiModel``: ``csrc/viterbi_sparse.cc``, the sparse Viterbi
   over the full silent-state graph in float64 on one CPU core, the
   baseline the reference's kernels are timed against (bench.py);
@@ -53,8 +54,9 @@ def _build(src: str, so: str) -> None:
 
 def load_closure():
     """Load (building on first use) the native silent-closure loops used
-    by models/compiler.compile_graph.  Raises on toolchain failure; the
-    caller falls back to the numpy loops."""
+    by models/compiler.compile_graph and
+    models/decode_compiler.compile_decode.  Raises on toolchain failure;
+    the caller falls back to the numpy loops."""
     global _closure_lib
     if _closure_lib is not None:
         return _closure_lib
@@ -73,6 +75,17 @@ def load_closure():
         f64, i32, i16, i16,     # C, parent, cross_us, cross_ue
         f64, i32, i16, i16,     # C0, p0, c0_us, c0_ue
         f64, i32, i16, i16,     # log_T, hop_choice, t_us, t_ue
+        f64, i32, i16, i16,     # log_start, start_choice, s_us, s_ue
+    ]
+    lib.model_decode_closure.restype = None
+    lib.model_decode_closure.argtypes = [
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+        i32, i32, f64,          # es_count, es_dst, es_w
+        i32, i32, f64,          # ss_count, ss_src, ss_w
+        i32, i32, f64,          # se_count, se_dst, se_w
+        i8, i8,                 # is_us, is_ue
+        f64, i16, i16,          # log_end, e_us, e_ue
+        f64, i32, i16, i16,     # C0, p0, c0_us, c0_ue
         f64, i32, i16, i16,     # log_start, start_choice, s_us, s_ue
     ]
     _closure_lib = lib

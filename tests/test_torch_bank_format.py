@@ -3,7 +3,9 @@ artifact without its dense O(n^2) tables), the default decode reads
 nothing more, and the modes that read the dense tables (the ``struct``
 decoder, the path expansion of ``-fs`` and ``-u``) load them on demand:
 from the companion file ``*.dense.pkl.gz`` where the bank has one, else by
-rebuilding the locus.  ``buildbank`` writes both files."""
+rebuilding the locus.  ``buildbank`` writes both files.  A build in the
+call compiles the decode payload alone, unless the cache's models will
+have their dense tables read (``LocusModelCache.whole``)."""
 
 import contextlib
 import dataclasses
@@ -43,9 +45,11 @@ def _ref(vid=301645, pattern=CSTB_PATTERN):
     return ref
 
 
-def _finder(bank_dir=None):
-    return finder.VNTRFinder(_ref(), model_cache=LocusModelCache(
-        "cpu", bank_dir=str(bank_dir) if bank_dir else None))
+def _finder(bank_dir=None, reads_paths=False):
+    cache = LocusModelCache("cpu",
+                            bank_dir=str(bank_dir) if bank_dir else None)
+    cache.reads_paths = reads_paths
+    return finder.VNTRFinder(_ref(), model_cache=cache)
 
 
 def _bank_path(vf, bank_dir):
@@ -64,13 +68,14 @@ def _call():
 
 @pytest.fixture(scope="module")
 def locus():
-    """The locus's reads, and its model built in memory, whole."""
+    """The locus's reads, and its model built in memory, whole (by a
+    cache whose models' paths are read)."""
     ref = _ref()
     reads, _, _ = simulate_diploid_reads(
         ref.left_flanking_region, CSTB_PATTERN, 2, 5,
         ref.right_flanking_region, read_length=READ_LEN, coverage=10,
         error_rate=0.002, seed=5)
-    vf = _finder()
+    vf = _finder(reads_paths=True)
     return vf, vf.get_model(READ_LEN), reads[0::2], reads[1::2]
 
 
@@ -87,13 +92,18 @@ def test_bank_file_is_the_decode_payload(tmp_path, locus):
     assert os.listdir(tmp_path) == [os.path.basename(path)]
     art, sm = bank.load_reference_payload(path)
     _assert_no_dense(art)
-    # the model built in the call keeps its whole artifact
-    assert bank.has_dense_tables(lm.art)
+    # the model built in the call for the default decode holds the
+    # decode payload alone, as the bank file does
+    _assert_no_dense(lm.art)
     for f in dataclasses.fields(art):
         if f.name not in bank.DENSE_FIELDS:
             np.testing.assert_array_equal(getattr(art, f.name),
                                           getattr(full.art, f.name))
-    assert counters["model.built"] == 1
+            np.testing.assert_array_equal(getattr(lm.art, f.name),
+                                          getattr(full.art, f.name))
+    assert counters["model.built"] == counters["model.build_decode_only"] \
+        == 1
+    assert counters["model.build_dense_bytes"] == 0
     assert counters["model.bank_bytes_written"] == os.path.getsize(path) > 0
     assert not any(counters.get(c) for c in DENSE_COUNTERS)
 
@@ -169,16 +179,18 @@ def test_dense_tables_load_on_demand(tmp_path, locus, companion):
 
 
 def test_built_model_banks_its_dense_tables_when_read(tmp_path, locus):
-    """A model built in the call keeps its dense tables in memory: a mode
-    that reads them rebuilds nothing and writes the bank's companion."""
+    """A model built whole in the call (by a cache whose models' paths
+    are read) keeps its dense tables in memory: a mode that reads them
+    rebuilds nothing and writes the bank's companion."""
     full_vf, full, mapped, unmapped = locus
-    vf = _finder(tmp_path)
+    vf = _finder(tmp_path, reads_paths=True)
     dense = bank.dense_payload_path(_bank_path(vf, tmp_path))
     with _call() as counters:
         lm = vf.get_model(READ_LEN)
         path = _paths(full_vf, full, mapped, unmapped)[0]
         assert lm.visited_states(path) == full.visited_states(path)
     assert counters["model.built"] == 1
+    assert "model.build_decode_only" not in counters
     assert counters["model.dense_write"] == 1
     assert not counters.get("model.dense_read")
     assert not counters.get("model.dense_rebuild")

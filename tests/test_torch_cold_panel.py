@@ -3,7 +3,9 @@ loci (above 16, so the grouped path floors its batches at 512 rows)
 genotyped in a working directory that holds no models, so that every model
 is built inside the call, against the same call from a bank that
 ``buildbank`` made; the counters of what the builds make and hold
-(``model.build_states``, ``model.build_dense_bytes``); the benchmark cell
+(``model.build_states``, ``model.build_dense_bytes``, none of it: every
+build compiles the decode payload alone, ``model.build_decode_only``);
+the benchmark cell
 ``ill6719.wgs30.built`` through the harness against the plain reference;
 and the reader of ``build_us_per_state``."""
 
@@ -137,9 +139,12 @@ def test_build_counters_are_the_sums_over_the_built_artifacts(calls):
     assert len(built) == LOCI
     assert cold["model.build_states"] == sum(len(a.names) for a in built)
     assert cold["model.build_dense_bytes"] == sum(
-        getattr(a, f).nbytes for a in built for f in DENSE)
+        getattr(a, f).nbytes for a in built for f in DENSE
+        if getattr(a, f) is not None) == 0
+    assert cold["model.build_decode_only"] == cold["model.built"] == LOCI
     assert "model.build_states" not in warm
     assert "model.build_dense_bytes" not in warm
+    assert "model.build_decode_only" not in warm
     summary = profiler.stage_summary(calls["cold_totals"])
     assert f"model.build_states: {cold['model.build_states']}" in summary
     assert f"model.build_dense_bytes: {cold['model.build_dense_bytes']}" \
@@ -175,6 +180,8 @@ def test_cell_run_against_the_reference(build, tmp_path, monkeypatch):
     assert code == 0 and result["attempted"] == LOCI
     timed = profiler.finished_calls()[-1].counters
     assert timed["model.built"] == LOCI and "model.bank_hit" not in timed
+    assert timed["model.build_decode_only"] == LOCI
+    assert timed["model.build_dense_bytes"] == 0
     if build == "sound":
         assert result["correct"] is True, result["checks"]
         assert result["failed"] == 0
